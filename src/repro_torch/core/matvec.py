@@ -1,0 +1,129 @@
+"""Unified matvec-backend registry — one dispatch point for the inner loop.
+
+The torch port of ``repro.core.matvec``.  Backend names and what they run:
+
+=============  =============================================================
+backend        apply path
+=============  =============================================================
+``csr``        gather + index-add on the assembled values (plain torch)
+``ell``        the ELL SpMV kernel (``repro_torch.kernels.spmv_ell``) over
+               the padded ELL layout; ``make_residual`` runs the fused
+               residual kernel (``galerkin_residual_ell``)
+``ell_pallas`` the same entry as ``ell``
+=============  =============================================================
+
+Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp
+and ``ell_pallas`` the Pallas TPU kernel.  Here both names run the CUDA
+kernels on CUDA tensors and their plain versions on CPU tensors, so the
+names of both registries select the same arithmetic.  ``ell_stream``,
+``matfree`` and ``matfree_sharded`` are registered but raise
+``NotImplementedError`` until the slices that port them.
+
+``make_matvec(op, backend)`` returns the apply closure;
+``make_residual(op, backend)`` returns ``(u, f) ↦ K·u − f``.  Further
+backends register with :func:`register_matvec_backend`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from .. import telemetry
+from ..kernels.ops import ell_matvec, ell_residual
+from .sparse import CSR, csr_to_ell
+
+__all__ = [
+    "MATVEC_BACKENDS",
+    "matvec_backends",
+    "register_matvec_backend",
+    "make_matvec",
+    "make_residual",
+]
+
+
+def _require_csr(op, backend: str) -> CSR:
+    if not isinstance(op, CSR):
+        raise TypeError(
+            f"backend {backend!r} needs an assembled CSR operator, got {type(op).__name__}"
+        )
+    return op
+
+
+def _csr_matvec(op) -> Callable:
+    return op.matvec
+
+
+def _csr_residual(op) -> Callable:
+    return lambda u, f: op.matvec(u) - f
+
+
+def _ell_matvec(op) -> Callable:
+    ell = csr_to_ell(_require_csr(op, "ell"))
+    return lambda x: ell_matvec(ell, x)
+
+
+def _ell_residual(op) -> Callable:
+    ell = csr_to_ell(_require_csr(op, "ell"))
+    return lambda u, f: ell_residual(ell, u, f)
+
+
+def _later(backend: str, slice_name: str) -> Callable:
+    def factory(op):
+        raise NotImplementedError(
+            f"matvec backend {backend!r} is not ported yet: it comes with the "
+            f"{slice_name} slice of the torch port (ROADMAP queue A)"
+        )
+
+    return factory
+
+
+# name -> (matvec factory, residual factory)
+_BACKENDS: dict[str, tuple[Callable, Callable]] = {
+    "csr": (_csr_matvec, _csr_residual),
+    "ell": (_ell_matvec, _ell_residual),
+    "ell_pallas": (_ell_matvec, _ell_residual),
+    "ell_stream": (_later("ell_stream", "streaming SpMV"),) * 2,
+    "matfree": (_later("matfree", "matrix-free operator"),) * 2,
+    "matfree_sharded": (_later("matfree_sharded", "sharding"),) * 2,
+}
+
+# the built-in backend names (custom ones appear in matvec_backends())
+MATVEC_BACKENDS = tuple(_BACKENDS)
+
+
+def matvec_backends() -> tuple[str, ...]:
+    """The currently registered backend names (built-ins + custom)."""
+    return tuple(_BACKENDS)
+
+
+def register_matvec_backend(name: str, matvec_factory: Callable,
+                            residual_factory: Callable | None = None,
+                            *, overwrite: bool = False) -> None:
+    """Register a custom backend: ``matvec_factory(op) -> (x ↦ A x)`` and an
+    optional fused-residual factory (defaults to ``matvec(u) − f``)."""
+    if name in _BACKENDS and not overwrite:
+        raise ValueError(f"matvec backend {name!r} already registered")
+    if residual_factory is None:
+        def residual_factory(op, _mf=matvec_factory):
+            mv = _mf(op)
+            return lambda u, f: mv(u) - f
+    _BACKENDS[name] = (matvec_factory, residual_factory)
+
+
+def _lookup(backend: str):
+    entry = _BACKENDS.get(backend)
+    if entry is None:
+        raise ValueError(f"unknown matvec backend {backend!r}; use one of {tuple(_BACKENDS)}")
+    return entry
+
+
+def make_matvec(op, backend: str = "csr") -> Callable:
+    """``x ↦ A @ x`` for the chosen inner-loop backend (table above)."""
+    telemetry.counter_inc("matvec_backend", 1, backend=backend, role="matvec")
+    return _lookup(backend)[0](op)
+
+
+def make_residual(op, backend: str = "csr") -> Callable:
+    """``(u, f) ↦ A·u − f``, fused where the backend supports it."""
+    telemetry.counter_inc("matvec_backend", 1, backend=backend, role="residual")
+    return _lookup(backend)[1](op)
