@@ -8,22 +8,35 @@ Phases, one JSON line each:
 1. device — the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, and the time to build the CUDA kernels from ``src/`` with nvcc;
 2. kernels_small — every kernel against its plain PyTorch version on the
-   card at ragged shapes, float32 and float64;
+   card at ragged shapes, float32 and float64 (the streaming kernels at the
+   JAX package's sweep shapes, pipeline depths 1-3), and a streaming plan
+   too large for shared memory must raise ``ValueError`` before launch;
 3. reference — ``PoissonProblem(unit_cube_tet(n)).solve(f=1.0)`` for
    n = 8, 16, 24 against the JAX package's numbers (DoFs and nnz exact,
    CG iterations within ±1, max u within 1e-6), and against a direct
    scipy solve at n = 8;
 4. main_path — the 3D Poisson solver at n = 64 (274,625 DoFs, 1,572,864
    tetrahedra): set-up, assembly, CG solve, then the quickstart's
-   variable-coefficient solve; every kernel must have launched, the
-   residual must agree with one computed by scipy on the host, and
-   max u must lie in [0.0555, 0.0565];
+   variable-coefficient solve; B1-B4 must have launched, the residual must
+   agree with one computed by scipy on the host, and max u must lie in
+   [0.0555, 0.0565];
 5. profile — a torch.profiler trace of one n = 64 solve: device busy time
    against wall time;
-6. kernels_main — each kernel at the shapes of the main path: error
-   against its plain version, median device time over 25 launches, the
-   plain version's and one PyTorch library call's time, and the bound;
-7. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
+6. transient — on the main path's assembler and condenser: 20
+   Crank–Nicolson steps of the heat equation (dt = 1e-3) with
+   ``backend="ell_stream"`` (B5 in every CG iteration) checked against the
+   decay e^{-3π²t}, against the ``ell`` rollout and, at n = 8 and 16,
+   against the JAX package's numbers; 20 Newmark steps of the wave
+   equation (energy drift <= 1e-6); one profiled rollout;
+7. stream_solve — ``PoissonProblem(unit_cube_tet(96))`` (912,673 DoFs)
+   solved with ``backend="ell_stream"`` (B5 in CG, B6 for the residual)
+   against ``backend="ell"``, with the streaming plan near its
+   shared-memory limit;
+8. kernels_main — each kernel at the shapes of the main path (B5/B6 at the
+   n = 64 θ-method operator and the n = 96 stiffness): error against its
+   plain version, median device time over 25 launches, the plain
+   version's and one PyTorch library call's time, and the bound;
+9. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
    with BiCGSTAB.
 
 Then the card's ``nvidia-smi`` line, the ``kernels`` summary line, and as
@@ -34,6 +47,7 @@ exits non-zero; with no CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -55,6 +69,15 @@ JAX_REFERENCE = {
     24: (15_625, 219_673, 57, 0.056065),
 }
 MAIN_N = 64
+# The JAX package's numbers for 20 Crank–Nicolson steps (dt = 1e-3, CG at
+# tol 1e-10 warm-started, backend "ell") of the heat equation on
+# unit_cube_tet(n) from u0 = sin(πx)sin(πy)sin(πz) on the free DoFs,
+# measured on the CPU: n -> (CG iterations per step, max u after 20 steps).
+JAX_THETA_REFERENCE = {
+    8: ([8, 8] + [7] * 18, 0.531882311278741),
+    16: ([5] * 20, 0.5478196849090163),
+}
+STREAM_N = 96
 
 # Pallas TPU kernel each CUDA kernel replaces, and where its source lives
 KERNELS = {
@@ -66,7 +89,14 @@ KERNELS = {
                  "src/repro_torch/kernels/csrc/spmv_ell.cu"),
     "galerkin_residual_ell": ("src/repro/kernels/spmv_ell.py:195",
                               "src/repro_torch/kernels/csrc/spmv_ell.cu"),
+    "spmv_ell_stream": ("src/repro/kernels/spmv_ell.py:404",
+                        "src/repro_torch/kernels/csrc/spmv_ell_stream.cu"),
+    "galerkin_residual_ell_stream": ("src/repro/kernels/spmv_ell.py:426",
+                                     "src/repro_torch/kernels/csrc/spmv_ell_stream.cu"),
 }
+MAIN_KERNELS = ("local_stiffness_p1", "seg_reduce", "spmv_ell", "galerkin_residual_ell")
+# (N, L, block_n) of the JAX package's streaming sweep (tests/test_kernels.py)
+STREAM_SWEEP = ((1000, 7, 256), (300, 1, 128), (100, 5, 4096), (4096, 9, 1024), (129, 3, 128))
 # flops of one element of the P1 Map kernel (closed-form adjugate + G Gᵀ)
 P1_FLOPS = {2: 57, 3: 168}
 
@@ -126,10 +156,14 @@ def random_simplices(rng, e, d, dtype):
 
 
 def phase_kernels_small():
-    from repro_torch.kernels import (galerkin_residual_ell, local_stiffness_p1, seg_reduce,
-                                     spmv_ell)
-    from repro_torch.kernels.ref import (galerkin_residual_ell_ref, local_stiffness_p1_ref,
-                                         seg_reduce_ref, spmv_ell_ref)
+    from repro_torch import kernels
+    from repro_torch.kernels import (StreamPlan, galerkin_residual_ell,
+                                     galerkin_residual_ell_stream, local_stiffness_p1,
+                                     seg_reduce, spmv_ell, spmv_ell_stream)
+    from repro_torch.kernels.ref import (galerkin_residual_ell_ref,
+                                         galerkin_residual_ell_stream_ref,
+                                         local_stiffness_p1_ref, seg_reduce_ref, spmv_ell_ref,
+                                         spmv_ell_stream_ref)
     from repro_torch.kernels.seg_reduce import ReduceTable
 
     worst = {name: 0.0 for name in KERNELS}
@@ -172,7 +206,43 @@ def phase_kernels_small():
             check(err <= tol * scale, f"galerkin_residual_ell N={n} L={width} {dtype}: {err}")
             worst["galerkin_residual_ell"] = max(worst["galerkin_residual_ell"], err / scale)
             cases += 2
-    emit({"phase": "kernels_small", "cases": cases, "tolerance": "max|err| <= tol * "
+    for n, width, block_n in STREAM_SWEEP:
+        rng = np.random.default_rng(n + width)
+        plan = StreamPlan(np.sort(rng.integers(0, n, size=(n, width)), axis=1), block_n)
+        cols_local, starts = plan.staged("cuda")
+        for dtype in (torch.float32, torch.float64):
+            tol = TOL[dtype]
+            vals, x, f = (torch.as_tensor(rng.normal(size=shape), dtype=dtype, device="cuda")
+                          for shape in ((n, width), n, n))
+            want = spmv_ell_stream_ref(vals, cols_local, starts, x, block_n, plan.x_len)
+            want_r = galerkin_residual_ell_stream_ref(vals, cols_local, starts, x, f, block_n,
+                                                      plan.x_len)
+            for nbuf in (1, 2, 3):
+                for name, got, ref in (
+                        ("spmv_ell_stream", spmv_ell_stream(vals, plan, x, nbuf=nbuf), want),
+                        ("galerkin_residual_ell_stream",
+                         galerkin_residual_ell_stream(vals, plan, x, f, nbuf=nbuf), want_r)):
+                    err, scale = max_err(got, ref)
+                    check(err <= tol * scale,
+                          f"{name} N={n} L={width} block_n={block_n} nbuf={nbuf} {dtype}: {err}")
+                    worst[name] = max(worst[name], err / scale)
+                    cases += 1
+    # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
+    cols = np.repeat(np.arange(40_000, dtype=np.int32)[:, None], 3, axis=1)
+    cols[::1024, 0] = np.minimum(np.arange(0, 40_000, 1024) + 30_000, 39_999)
+    wide = StreamPlan(cols, 1024)
+    vals = torch.ones((40_000, 3), dtype=torch.float64, device="cuda")
+    x = torch.ones(40_000, dtype=torch.float64, device="cuda")
+    before = dict(kernels.LAUNCHES)
+    try:
+        spmv_ell_stream(vals, wide, x)
+    except ValueError as e:
+        infeasible = str(e)
+    else:
+        raise AssertionError(f"a plan with W={wide.window} launched without a ValueError")
+    check(kernels.LAUNCHES == before, "the infeasible plan launched a kernel")
+    emit({"phase": "kernels_small", "cases": cases, "infeasible_plan": infeasible,
+          "tolerance": "max|err| <= tol * "
           "max(1, max|plain|), tol 2e-4 (float32) / 1e-12 (float64)",
           "worst_scaled_err": worst})
 
@@ -242,8 +312,8 @@ def phase_main_path():
         "launches": launches,
     }
     emit(out)
-    for name, count in launches.items():
-        check(count > 0, f"main path: kernel {name} never launched")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"main path: kernel {name} never launched")
     check(res.converged and res_rho.converged, "main path: a solve did not converge")
     # the stopping rule is ‖r‖ ≤ max(tol·‖f‖, atol) with tol = atol = 1e-10;
     # at n = 64 ‖f‖ ≈ 2e-3, so the absolute floor decides (as in the JAX package)
@@ -313,12 +383,168 @@ def phase_profile(prob):
     return out
 
 
-def phase_kernels_main(prob, k, bw, fp64):
+THETA_DT, THETA_STEPS = 1e-3, 20
+
+
+def _heat_rollout(prob, backend):
+    """The Crank–Nicolson integrator of the heat equation on ``prob``'s
+    assembler and condenser, and u0 = sin(πx)sin(πy)sin(πz) on the free
+    DoFs."""
+    from repro_torch.core import weakform as wf
+    from repro_torch.transient import CRANK_NICOLSON, ThetaIntegrator
+
+    integ = ThetaIntegrator.from_form(prob.asm, wf.diffusion(1.0), THETA_DT,
+                                      theta=CRANK_NICOLSON, bc=prob.bc, backend=backend)
+    pts = torch.as_tensor(prob.space.dof_points, dtype=torch.float64, device="cuda")
+    return integ, torch.sin(math.pi * pts).prod(dim=1) * prob.bc.free_mask
+
+
+def phase_transient(prob):
+    """The θ-method and Newmark rollouts on the streaming backend (B5 in
+    every CG iteration of the θ steps and in every Newmark stiffness
+    apply), on the main path's n = 64 assembler and condenser."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import unit_cube_tet, weakform as wf
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.transient import NewmarkIntegrator
+
+    refs = []
+    for n, (iters, umax) in JAX_THETA_REFERENCE.items():
+        integ, u0 = _heat_rollout(PoissonProblem(unit_cube_tet(n), device="cuda"), "ell_stream")
+        traj, info = integ.rollout(u0, THETA_STEPS, return_info=True)
+        row = {"n": n, "iters": info.iters.tolist(), "jax_iters": iters,
+               "max_u": float(traj[-1].max()), "jax_max_u": umax}
+        refs.append(row)
+        check(max(abs(a - b) for a, b in zip(row["iters"], iters)) <= 1,
+              f"θ rollout n={n}: iterations {row}")
+        check(abs(row["max_u"] - umax) <= 1e-9 * umax, f"θ rollout n={n}: max u {row}")
+
+    integ, u0 = _heat_rollout(prob, "ell_stream")
+    integ.rollout(u0, 1)  # builds and stages the streaming plan
+    kernels.reset_launches()
+    (traj, info), wall_s = timed(lambda: integ.rollout(u0, THETA_STEPS, return_info=True))
+    launches = dict(kernels.LAUNCHES)
+    ell_integ, _ = _heat_rollout(prob, "ell")
+    (traj_ell, info_ell), ell_wall_s = timed(
+        lambda: ell_integ.rollout(u0, THETA_STEPS, return_info=True))
+
+    decay = math.exp(-3 * math.pi**2 * THETA_DT * THETA_STEPS)
+    ratio = float(traj[-1].max() / u0.max())
+    diff = float((traj - traj_ell).abs().max() / traj_ell.abs().max())
+    iters = info.iters.tolist()
+
+    m_op = prob.asm.assemble(wf.mass(1.0))
+    k_op = prob.asm.assemble(wf.diffusion(1.0))
+    nm = NewmarkIntegrator(m_op, k_op, dt=THETA_DT, bc=prob.bc, backend="ell_stream")
+    kernels.reset_launches()
+    ((u_tr, v_tr), nm_info), nm_wall_s = timed(
+        lambda: nm.rollout(u0, THETA_STEPS, return_velocity=True, return_info=True))
+    nm_launches = dict(kernels.LAUNCHES)
+
+    def energy(u, v):
+        return 0.5 * (v @ m_op.matvec(v) + u @ k_op.matvec(u))
+
+    e0 = float(energy(u0, torch.zeros_like(u0)))
+    drift = max(abs(float(energy(u, v)) - e0) for u, v in zip(u_tr, v_tr)) / e0
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        _, prof_wall_s = timed(lambda: integ.rollout(u0, THETA_STEPS))
+    busy_ms, top = _device_time(prof)
+
+    out = {
+        "phase": "transient", "n": MAIN_N, "dofs": prob.space.num_dofs, "dt": THETA_DT,
+        "steps": THETA_STEPS, "jax_reference": refs,
+        "theta": {"backend": "ell_stream", "iters": iters, "converged": bool(info.converged.all()),
+                  "wall_s": wall_s, "wall_ms_per_step": 1e3 * wall_s / THETA_STEPS,
+                  "ell_wall_ms_per_step": 1e3 * ell_wall_s / THETA_STEPS,
+                  "max_u_ratio": ratio, "expected_ratio": decay,
+                  "max_rel_diff_vs_ell": diff, "ell_iters": info_ell.iters.tolist(),
+                  "launches": launches,
+                  "spmv_ell_stream_per_step": launches["spmv_ell_stream"] / THETA_STEPS},
+        "newmark": {"backend": "ell_stream", "energy_drift": drift, "wall_s": nm_wall_s,
+                    "wall_ms_per_step": 1e3 * nm_wall_s / THETA_STEPS,
+                    "iters": nm_info.iters.tolist(), "launches": nm_launches},
+        "profiled_theta_rollout": {"wall_ms": 1e3 * prof_wall_s, "device_busy_ms": busy_ms,
+                                   "device_idle_share": 1 - busy_ms / (1e3 * prof_wall_s),
+                                   "top_kernels": top},
+    }
+    emit(out)
+    check(bool(info.converged.all()) and bool(info_ell.converged.all()),
+          "θ rollout did not converge")
+    check(abs(ratio / decay - 1) <= 0.01, f"θ rollout: max u ratio {ratio} vs e^-3π²t {decay}")
+    check(diff <= 1e-8, f"θ rollout: ell_stream vs ell differ by {diff}")
+    check(max(abs(a - b) for a, b in zip(iters, info_ell.iters.tolist())) <= 1,
+          "θ rollout: iterations of ell_stream and ell differ")
+    # per step: one rhs apply, the CG's initial residual, one per iteration
+    check(launches["spmv_ell_stream"] == sum(iters) + 2 * THETA_STEPS,
+          f"θ rollout: B5 launched {launches['spmv_ell_stream']} times for {sum(iters)} "
+          "iterations")
+    check(launches["spmv_ell"] == 0, "θ rollout on ell_stream launched B3")
+    check(nm_launches["spmv_ell_stream"] == THETA_STEPS + 1,
+          f"Newmark: B5 launched {nm_launches['spmv_ell_stream']} times")
+    check(drift <= 1e-6, f"Newmark energy drift {drift}")
+    check(busy_ms > 0, "transient profile: the trace holds no device time")
+    return integ.lhs, launches
+
+
+def phase_stream_solve():
+    """The streaming backend on a problem whose plan sits near the
+    shared-memory limit: PoissonProblem(unit_cube_tet(96))."""
+    from repro_torch import kernels
+    from repro_torch.core import unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.kernels.spmv_ell import BLOCK_N, N_BUFFERS
+
+    prob, setup_s = timed(lambda: PoissonProblem(unit_cube_tet(STREAM_N), device="cuda"))
+    k, _ = prob.assemble(f=1.0)
+    kernels.reset_launches()
+    # the first solve also builds the ELL layout and the streaming plan
+    res, first_s = timed(lambda: prob.solve(f=1.0, backend="ell_stream"))
+    launches = dict(kernels.LAUNCHES)
+    res_ell, _ = timed(lambda: prob.solve(f=1.0, backend="ell"))
+    _, solve_s = timed(lambda: prob.solve(f=1.0, backend="ell_stream"))
+    _, ell_s = timed(lambda: prob.solve(f=1.0, backend="ell"))
+    plan = k.pattern.stream_plans()(BLOCK_N)
+    max_u = float(res.u.max())
+    du = float((res.u - res_ell.u).abs().max())
+    out = {"phase": "stream_solve", "n": STREAM_N, "dofs": prob.space.num_dofs,
+           "elements": prob.mesh.num_cells, "nnz": prob.plan.nnz, "setup_s": setup_s,
+           "iters": res.iters, "ell_iters": res_ell.iters, "residual": res.residual,
+           "converged": res.converged, "max_u": max_u, "max_abs_diff_vs_ell": du,
+           "first_solve_s": first_s, "solve_s": solve_s, "ell_solve_s": ell_s,
+           "plan": {"window": plan.window, "block_n": plan.block_n, "nbuf": N_BUFFERS,
+                    "n_blocks": plan.n_blocks, "ell_width": plan.width,
+                    "smem_bytes": plan.smem_bytes(N_BUFFERS, 8),
+                    "smem_optin_bytes":
+                        torch.cuda.get_device_properties(0).shared_memory_per_block_optin},
+           "launches": launches}
+    emit(out)
+    check(res.converged and res_ell.converged, "n=96: a solve did not converge")
+    check(abs(res.iters - res_ell.iters) <= 1, f"n=96: iterations {res.iters} vs {res_ell.iters}")
+    check(du <= 1e-9 * float(res_ell.u.abs().max()), f"n=96: ell_stream vs ell differ by {du}")
+    check(0.0555 <= max_u <= 0.0565, f"n=96: max u {max_u}")
+    check(launches["galerkin_residual_ell_stream"] > 0, "n=96: B6 never launched")
+    check(launches["spmv_ell_stream"] == res.iters + 1, "n=96: B5 launches != iterations + 1")
+    check(launches["spmv_ell"] == 0 and launches["galerkin_residual_ell"] == 0,
+          "n=96: the ell_stream solve launched B3/B4")
+    return k, launches
+
+
+def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
+    from repro_torch import telemetry
     from repro_torch.core import csr_to_ell, unit_square_tri
-    from repro_torch.kernels import (galerkin_residual_ell, local_stiffness_p1, seg_reduce,
-                                     spmv_ell)
-    from repro_torch.kernels.ref import (galerkin_residual_ell_ref, local_stiffness_p1_ref,
-                                         seg_reduce_ref, spmv_ell_ref)
+    from repro_torch.kernels import (autotune_ell_stream, galerkin_residual_ell,
+                                     galerkin_residual_ell_stream, local_stiffness_p1,
+                                     seg_reduce, spmv_ell, spmv_ell_stream)
+    from repro_torch.kernels.ref import (galerkin_residual_ell_ref,
+                                         galerkin_residual_ell_stream_ref,
+                                         local_stiffness_p1_ref, seg_reduce_ref, spmv_ell_ref,
+                                         spmv_ell_stream_ref)
+    from repro_torch.kernels.spmv_ell import BLOCK_N, N_BUFFERS
 
     def bound(nbytes, flops):
         t_bytes, t_ops = nbytes / bw, flops / fp64
@@ -391,6 +617,57 @@ def phase_kernels_main(prob, k, bw, fp64):
                       "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(ref),
                       "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
                       "bytes": nbytes}
+    # B5 / B6 at the n = 64 θ-method operator (M + θΔtK, condensed) and the
+    # n = 96 stiffness; the bound is B3's (vals, cols, x, y [, f] once each):
+    # the window re-reads are overhead, counted in moved_bytes
+    stream = {}
+    for label, op in (("theta_lhs_n64", theta_lhs), ("stiffness_n96", k_stream)):
+        ell = csr_to_ell(op)
+        n, width = ell.vals.shape
+        plan = op.pattern.stream_plans()(BLOCK_N)
+        cols_local, starts = plan.staged("cuda")
+        x = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
+        f = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
+        a_lib = torch.sparse_csr_tensor(torch.as_tensor(op.indptr, device="cuda"),
+                                        torch.as_tensor(op.indices, device="cuda"), op.vals,
+                                        size=op.shape)
+        b3_ms = time_ms(lambda: spmv_ell(ell.vals, ell.cols_dev, x))
+        telemetry.reset()
+        with telemetry.enabled():
+            tuned = autotune_ell_stream(ell, x, block_candidates=(512, 1024, 2048, 4096, 8192),
+                                        nbuf_candidates=(1, 2, 3), iters=10)
+            sweep = {key.split("{")[1].rstrip("}"): h["mean"]
+                     for key, h in telemetry.snapshot()["histograms"].items()
+                     if key.startswith("ell_stream_autotune_us")}
+        telemetry.reset()
+        for name, fn, ref, lib, extra in (
+            ("spmv_ell_stream", lambda: spmv_ell_stream(ell.vals, plan, x),
+             lambda: spmv_ell_stream_ref(ell.vals, cols_local, starts, x, plan.block_n,
+                                         plan.x_len),
+             lambda: a_lib @ x, 0),
+            ("galerkin_residual_ell_stream",
+             lambda: galerkin_residual_ell_stream(ell.vals, plan, x, f),
+             lambda: galerkin_residual_ell_stream_ref(ell.vals, cols_local, starts, x, f,
+                                                      plan.block_n, plan.x_len),
+             lambda: torch.addmv(f, a_lib, x, beta=-1.0), 1),
+        ):
+            err, scale = max_err(fn(), ref())
+            check(err <= 1e-12 * scale, f"{name} {label}: {err}")
+            err_lib, _ = max_err(lib(), ref())
+            check(err_lib <= 1e-12 * scale, f"{name} {label}: library call disagrees: {err_lib}")
+            nbytes = 12 * n * width + 8 * n * (2 + extra)
+            b_ms, b_by = bound(nbytes, 2 * op.nnz + extra * n)
+            stream.setdefault(name, {})[label] = {
+                "shape": f"N={n} L={width} nnz={op.nnz} W={plan.window} "
+                         f"block_n={plan.block_n} nbuf={N_BUFFERS}",
+                "max_abs_err": err, "scale": scale, "ms": time_ms(fn),
+                "plain_ms": time_ms(ref), "library_ms": time_ms(lib), "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": nbytes,
+                "moved_bytes": nbytes + 8 * plan.n_blocks * plan.window,
+                "smem_bytes": plan.smem_bytes(N_BUFFERS, 8), "spmv_ell_ms": b3_ms,
+                "autotune": {"block_n": tuned[0], "nbuf": tuned[1], "wall_us": sweep}}
+    for name, by_label in stream.items():
+        rows[name] = {**by_label["theta_lhs_n64"], "n96": by_label["stiffness_n96"]}
     emit({"phase": "kernels_main", "rows": rows})
     return rows
 
@@ -433,15 +710,25 @@ def main() -> int:
 
     phase_kernels_small()
     phase_reference()
-    prob, k, _, launches, _ = phase_main_path()
+    prob, k, _, main_launches, _ = phase_main_path()
     phase_profile(prob)
-    rows = phase_kernels_main(prob, k, bw, fp64)
+    theta_lhs, transient_launches = phase_transient(prob)
+    k_stream, stream_launches = phase_stream_solve()
+    rows = phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64)
     phase_second_entry()
+
+    # each kernel's launches on the path that runs it: B1-B4 on the main
+    # path, B5 on the θ rollout, B6 in the n = 96 streaming solve
+    paths = {**{kname: ("main_path", main_launches) for kname in MAIN_KERNELS},
+             "spmv_ell_stream": ("transient", transient_launches),
+             "galerkin_residual_ell_stream": ("stream_solve", stream_launches)}
+    launches = {kname: counts[kname] for kname, (_, counts) in paths.items()}
 
     print(smi)
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[kname], "max_abs_err": rows[kname]["max_abs_err"],
+         "launches": launches[kname], "path": paths[kname][0],
+         "max_abs_err": rows[kname]["max_abs_err"],
          "max_err": rows[kname]["max_abs_err"], "ms": rows[kname]["ms"],
          "plain_ms": rows[kname]["plain_ms"], "twin_ms": rows[kname]["plain_ms"],
          "bound_ms": rows[kname]["bound_ms"], "bound_by": rows[kname]["bound_by"],

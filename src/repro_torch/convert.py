@@ -13,7 +13,7 @@ import torch
 
 from .core.assembly import DTYPE, resolve_device
 from .core.mesh import Mesh
-from .core.sparse import CSR
+from .core.sparse import CSR, CSRPattern
 
 __all__ = ["from_numpy"]
 
@@ -39,6 +39,11 @@ def from_numpy(state: dict, device=None) -> dict:
     * ``vals``, ``indptr``, ``indices``, ``shape`` (optionally
       ``row_of_nnz``, ``diag_pos``) → ``out["csr"]``, a
       :class:`~repro_torch.core.CSR` with float64 values on ``device``;
+      the same keys under a prefix (``mass.vals``, ``mass.indptr``, …,
+      ``stiff.vals``, …) → ``out["mass"]``, ``out["stiff"]``, ….  CSRs
+      with equal ``shape``, ``indptr`` and ``indices`` share one
+      :class:`~repro_torch.core.CSRPattern`, so its ELL layout and
+      streaming plans are built once (and ``axpy_csr`` takes them);
     * every other array or scalar (per-element ``(E,)``, per-quadrature
       ``(E, Q)`` or nodal ``(N,)`` coefficients, vectors) → a tensor on
       ``device`` under the same key: float64 for floating data, int64 for
@@ -49,12 +54,24 @@ def from_numpy(state: dict, device=None) -> dict:
     rest = dict(state)
     if all(k in rest for k in _MESH_KEYS):
         out["mesh"] = Mesh(rest.pop("points"), rest.pop("cells"), str(rest.pop("cell_type")))
-    if all(k in rest for k in _CSR_KEYS):
-        vals = _tensor(rest.pop("vals"), device)
-        out["csr"] = CSR.from_arrays(
-            vals, rest.pop("indptr"), rest.pop("indices"), tuple(rest.pop("shape")),
-            row_of_nnz=rest.pop("row_of_nnz", None), diag_pos=rest.pop("diag_pos", None),
-        )
+    prefixes = [""] + sorted({k.rsplit(".", 1)[0] for k in rest if "." in k})
+    patterns: list[CSRPattern] = []
+    for pre in prefixes:
+        keys = {k: f"{pre}.{k}" if pre else k for k in (*_CSR_KEYS, "row_of_nnz", "diag_pos")}
+        if not all(keys[k] in rest for k in _CSR_KEYS):
+            continue
+        vals = _tensor(rest.pop(keys["vals"]), device)
+        pattern = CSRPattern(rest.pop(keys["indptr"]), rest.pop(keys["indices"]),
+                             tuple(rest.pop(keys["shape"])),
+                             rest.pop(keys["row_of_nnz"], None), rest.pop(keys["diag_pos"], None))
+        for seen in patterns:
+            if (seen.shape == pattern.shape and np.array_equal(seen.indptr, pattern.indptr)
+                    and np.array_equal(seen.indices, pattern.indices)):
+                pattern = seen
+                break
+        else:
+            patterns.append(pattern)
+        out[pre or "csr"] = CSR(vals, pattern)
     for key, value in rest.items():
         out[key] = _tensor(value, device)
     return out

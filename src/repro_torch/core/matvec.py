@@ -10,12 +10,20 @@ backend        apply path
                the padded ELL layout; ``make_residual`` runs the fused
                residual kernel (``galerkin_residual_ell``)
 ``ell_pallas`` the same entry as ``ell``
+``ell_stream`` the streaming ELL SpMV kernel
+               (``repro_torch.kernels.spmv_ell_stream``): each row block
+               stages its x-window in shared memory and streams its
+               vals/cols tiles through a ``cp.async`` pipeline, on the plan
+               the sparsity pattern caches; ``make_residual`` runs the fused
+               streaming residual (``galerkin_residual_ell_stream``)
 =============  =============================================================
 
-Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp
-and ``ell_pallas`` the Pallas TPU kernel.  Here both names run the CUDA
-kernels on CUDA tensors and their plain versions on CPU tensors, so the
-names of both registries select the same arithmetic.  ``ell_stream``,
+Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp,
+``ell_pallas`` the Pallas TPU kernel of the broadcast plan and
+``ell_stream`` the Pallas kernel of the streaming plan.  Here ``ell`` and
+``ell_pallas`` both run the broadcast-plan CUDA kernels and ``ell_stream``
+the streaming ones, on CUDA tensors, and their plain versions on CPU
+tensors, so the names of both registries select the same arithmetic.
 ``matfree`` and ``matfree_sharded`` are registered but raise
 ``NotImplementedError`` until the slices that port them.
 
@@ -29,7 +37,7 @@ from __future__ import annotations
 from typing import Callable
 
 from .. import telemetry
-from ..kernels.ops import ell_matvec, ell_residual
+from ..kernels.ops import ell_matvec, ell_matvec_stream, ell_residual, ell_residual_stream
 from .sparse import CSR, csr_to_ell
 
 __all__ = [
@@ -67,6 +75,16 @@ def _ell_residual(op) -> Callable:
     return lambda u, f: ell_residual(ell, u, f)
 
 
+def _ell_stream_matvec(op) -> Callable:
+    ell = csr_to_ell(_require_csr(op, "ell_stream"))
+    return lambda x: ell_matvec_stream(ell, x)
+
+
+def _ell_stream_residual(op) -> Callable:
+    ell = csr_to_ell(_require_csr(op, "ell_stream"))
+    return lambda u, f: ell_residual_stream(ell, u, f)
+
+
 def _later(backend: str, slice_name: str) -> Callable:
     def factory(op):
         raise NotImplementedError(
@@ -82,7 +100,7 @@ _BACKENDS: dict[str, tuple[Callable, Callable]] = {
     "csr": (_csr_matvec, _csr_residual),
     "ell": (_ell_matvec, _ell_residual),
     "ell_pallas": (_ell_matvec, _ell_residual),
-    "ell_stream": (_later("ell_stream", "streaming SpMV"),) * 2,
+    "ell_stream": (_ell_stream_matvec, _ell_stream_residual),
     "matfree": (_later("matfree", "matrix-free operator"),) * 2,
     "matfree_sharded": (_later("matfree_sharded", "sharding"),) * 2,
 }

@@ -24,7 +24,8 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 class CSRPattern:
     """A static CSR sparsity pattern: host arrays, their per-device
-    mirrors, and the derived ELL layout (each computed once)."""
+    mirrors, the derived ELL layout and its streaming SpMV plans (each
+    computed once)."""
 
     def __init__(self, indptr, indices, shape, row_of_nnz=None, diag_pos=None):
         self.indptr = np.asarray(indptr, dtype=np.int64)
@@ -41,6 +42,7 @@ class CSRPattern:
         self.diag_pos = np.asarray(diag_pos, dtype=np.int64)
         self._staged: dict[torch.device, dict[str, torch.Tensor]] = {}
         self._ell = None
+        self._stream = None
 
     @property
     def nnz(self) -> int:
@@ -75,6 +77,16 @@ class CSRPattern:
             cols[self.row_of_nnz, slot] = self.indices
             self._ell = (cols, self.row_of_nnz * L + slot, L)
         return self._ell
+
+    def stream_plans(self):
+        """The streaming SpMV plans of the ELL layout
+        (:class:`repro_torch.kernels.spmv_ell.StreamPlans`): one plan per
+        ``block_n``, each staging its tables to a device once."""
+        if self._stream is None:
+            from ..kernels.spmv_ell import StreamPlans
+
+            self._stream = StreamPlans(self.ell_layout()[0])
+        return self._stream
 
 
 @dataclasses.dataclass
@@ -154,12 +166,14 @@ class CSR:
 class ELL:
     """ELLPACK: fixed nnz-per-row padded layout — the layout of the SpMV
     kernels (bounded valence of FEM meshes).  ``cols_dev`` is the staged
-    int32 column table on ``vals.device``."""
+    int32 column table on ``vals.device``; ``pattern`` the CSR pattern it
+    was derived from (which caches the streaming plans)."""
 
     vals: torch.Tensor       # (n, L), zero-padded
     cols: np.ndarray         # (n, L) int32, padded with the row index
     shape: tuple[int, int]
     cols_dev: torch.Tensor   # (n, L) int32 on vals.device
+    pattern: CSRPattern
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         from ..kernels.spmv_ell import spmv_ell
@@ -177,7 +191,7 @@ def csr_to_ell(csr: CSR) -> ELL:
     n = csr.shape[0]
     vals = torch.zeros(n * L, dtype=csr.vals.dtype, device=csr.vals.device)
     vals = vals.index_put((csr._dev("flat_pos"),), csr.vals)
-    return ELL(vals.reshape(n, L), cols, csr.shape, csr._dev("cols"))
+    return ELL(vals.reshape(n, L), cols, csr.shape, csr._dev("cols"), csr.pattern)
 
 
 def cached_diagonal(op) -> torch.Tensor:

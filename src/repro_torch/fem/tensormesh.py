@@ -102,7 +102,10 @@ class PoissonProblem(_ProblemBase):
               tol=None, maxiter=None, backend=None, return_info=False):
         """Assemble and solve; solver knobs come in as one
         :class:`~repro_torch.core.SolverSpec` (``spec=``; legacy ``tol=`` /
-        ``maxiter=`` kwargs still work but are deprecated).
+        ``maxiter=`` kwargs still work but are deprecated).  ``backend``
+        names the Krylov matvec and residual of the registry: ``"ell"``
+        (default, broadcast-plan kernels), ``"ell_stream"`` (streaming
+        kernels) or ``"csr"``.
         ``return_info=True`` appends the raw
         :class:`~repro_torch.core.SolveInfo`."""
         spec = self._spec(spec, tol, maxiter, "solve")

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("local_assembly", "seg_reduce", "spmv_ell")
+SOURCES = ("local_assembly", "seg_reduce", "spmv_ell", "spmv_ell_stream")
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: dict[str, int] = {
@@ -39,6 +39,8 @@ LAUNCHES: dict[str, int] = {
     "seg_reduce": 0,
     "spmv_ell": 0,
     "galerkin_residual_ell": 0,
+    "spmv_ell_stream": 0,
+    "galerkin_residual_ell_stream": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,8 @@ __all__ = [
     "seg_reduce_ref",
     "spmv_ell_ref",
     "galerkin_residual_ell_ref",
+    "spmv_ell_stream_ref",
+    "galerkin_residual_ell_stream_ref",
 ]
 
 
@@ -48,3 +50,19 @@ def spmv_ell_ref(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> tor
 def galerkin_residual_ell_ref(vals, cols, u, f) -> torch.Tensor:
     """Fused residual r = K u − f on the ELL operator."""
     return spmv_ell_ref(vals, cols, u) - f
+
+
+def spmv_ell_stream_ref(vals, cols_local, starts, x, block_n: int, x_len: int) -> torch.Tensor:
+    """Streaming-plan SpMV, walking the plan: row r of block b = r // block_n
+    gathers ``x_pad[starts[b] + cols_local[r]]``, with x zero-padded to
+    ``x_len`` (so a wrong start or rebase shows in y)."""
+    n = vals.shape[0]
+    x_pad = torch.cat([x, x.new_zeros(x_len - n)])
+    row_start = starts.long().repeat_interleave(block_n)[:n, None]
+    return (vals * x_pad[row_start + cols_local[:n].long()]).sum(dim=1)
+
+
+def galerkin_residual_ell_stream_ref(vals, cols_local, starts, u, f, block_n: int,
+                                     x_len: int) -> torch.Tensor:
+    """Fused residual r = K u − f on the streaming plan."""
+    return spmv_ell_stream_ref(vals, cols_local, starts, u, block_n, x_len) - f

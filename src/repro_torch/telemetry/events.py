@@ -17,6 +17,8 @@ import threading
 import time
 import warnings
 
+import numpy as np
+
 from . import metrics
 
 __all__ = [
@@ -71,18 +73,36 @@ def record_event(kind: str, name: str, *, wall_us: float | None = None, **fields
     return ev
 
 
+def _summarize_info(info) -> dict:
+    """Host scalars from a ``SolveInfo`` whose leaves are scalars or
+    stacked per-step / per-instance host tensors: total and max iterations,
+    number of solves, worst residual, all-converged."""
+    it = np.asarray(info.iters)
+    res = np.asarray(info.residual)
+    conv = np.asarray(info.converged)
+    return {
+        "iterations": int(it.sum()),
+        "iterations_max": int(it.max()),
+        "n_solves": int(it.size),
+        "final_residual": float(res.max()),
+        "converged": bool(conv.all()),
+    }
+
+
 def check_convergence(info, where: str = "solve", on_fail: str | None = None):
-    """Host-side non-convergence guard for one ``SolveInfo``.  If
-    ``converged`` is false, apply the policy: ``"warn"`` (default, a
-    :class:`ConvergenceWarning`), ``"raise"`` (:class:`NonConvergedError`),
-    or ``"ignore"``."""
-    if info.converged:
+    """Host-side non-convergence guard for a ``SolveInfo`` (scalar or
+    stacked leaves).  If any solve has ``converged=False``, apply the
+    policy: ``"warn"`` (default, a :class:`ConvergenceWarning`),
+    ``"raise"`` (:class:`NonConvergedError`), or ``"ignore"``."""
+    s = _summarize_info(info)
+    if s["converged"]:
         return
     policy = on_fail or metrics.nonconverged_policy()
     msg = (
-        f"{where}: solver did NOT converge after {info.iters} iterations "
-        f"(final residual {info.residual:.3e}) — the returned solution does "
-        "not meet tolerance"
+        f"{where}: solver did NOT converge after {s['iterations_max']} iterations "
+        f"(final residual {s['final_residual']:.3e}"
+        + (f", {s['n_solves']} solves" if s["n_solves"] > 1 else "")
+        + ") — the returned solution does not meet tolerance"
     )
     if policy == "raise":
         raise NonConvergedError(msg)
@@ -93,24 +113,24 @@ def check_convergence(info, where: str = "solve", on_fail: str | None = None):
 def record_solve(name: str, info, *, method: str | None = None,
                  backend: str | None = None, precond: str | None = None,
                  phase: str = "forward", wall_us: float | None = None, **extra):
-    """Record one solve event from a ``SolveInfo`` and fold it into the
-    metrics (iteration histogram, optional wall-time histogram, solve
-    counter).  No-op when disabled."""
+    """Record one solve event from a ``SolveInfo`` (scalar or stacked
+    leaves) and fold it into the metrics (iteration histogram, optional
+    wall-time histogram, solve counter).  No-op when disabled."""
     if not metrics.is_enabled():
         return None
+    s = _summarize_info(info)
     labels = {"solver": method or "?", "phase": phase}
     if backend:
         labels["backend"] = backend
     if precond:
         labels["precond"] = precond
-    metrics.counter_inc("solves", 1, **labels)
-    metrics.histogram_observe("solve_iterations", info.iters, **labels)
+    metrics.counter_inc("solves", s["n_solves"], **labels)
+    metrics.histogram_observe("solve_iterations", s["iterations"], **labels)
     if wall_us is not None:
         metrics.histogram_observe("solve_wall_us", wall_us, **labels)
     return record_event(
         "solve", name, wall_us=wall_us, method=method, backend=backend,
-        precond=precond, phase=phase, iterations=info.iters,
-        final_residual=info.residual, converged=info.converged, **extra,
+        precond=precond, phase=phase, **s, **extra,
     )
 
 

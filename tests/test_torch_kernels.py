@@ -239,4 +239,5 @@ def test_cuda_kernels_match_plain(cuda, e, np_dt, t_dt, tol):
         torch.testing.assert_close(galerkin_residual_ell(vals, cols, x, x), want - x,
                                    atol=tol * 10, rtol=tol)
     assert kernels.LAUNCHES == {"local_stiffness_p1": 2, "seg_reduce": 1, "spmv_ell": 3,
-                                "galerkin_residual_ell": 3}
+                                "galerkin_residual_ell": 3, "spmv_ell_stream": 0,
+                                "galerkin_residual_ell_stream": 0}

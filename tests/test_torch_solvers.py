@@ -111,11 +111,11 @@ def test_matvec_registry():
     k, f = st["csr"], st["f"]
     x = torch.as_tensor(np.random.default_rng(2).normal(size=k.shape[0]))
     want = k.matvec(x)
-    for backend in ("csr", "ell", "ell_pallas"):
+    for backend in ("csr", "ell", "ell_pallas", "ell_stream"):
         torch.testing.assert_close(tc.make_matvec(k, backend)(x), want, atol=1e-13, rtol=0)
         torch.testing.assert_close(tc.make_residual(k, backend)(x, f), want - f,
                                    atol=1e-13, rtol=0)
-    for backend in ("ell_stream", "matfree", "matfree_sharded"):
+    for backend in ("matfree", "matfree_sharded"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tc.make_matvec(k, backend)
     with pytest.raises(ValueError):
