@@ -7,10 +7,16 @@ Phases, one JSON line each:
 
 1. device — the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, and the time to build the CUDA kernels from ``src/`` with nvcc;
+   then, on a line of its own, ``ptxas -v``'s registers, static shared
+   memory and spills for each kernel of ``spmv_ell_stream.cu``;
 2. kernels_small — every kernel against its plain PyTorch version on the
    card at ragged shapes, float32 and float64 (the streaming kernels at the
-   JAX package's sweep shapes, pipeline depths 1-3), and a streaming plan
-   too large for shared memory must raise ``ValueError`` before launch;
+   JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
+   each path of the kernel's schedule at every depth the wrapper accepts:
+   decreasing window starts, a step past the ring, odd window starts with
+   misaligned operands, ragged N and block_n, CTA runs over many blocks),
+   and a streaming plan too large for shared memory must raise
+   ``ValueError`` before launch;
 3. reference — ``PoissonProblem(unit_cube_tet(n)).solve(f=1.0)`` for
    n = 8, 16, 24 against the JAX package's numbers (DoFs and nnz exact,
    CG iterations within ±1, max u within 1e-6), and against a direct
@@ -35,7 +41,8 @@ Phases, one JSON line each:
 8. kernels_main — each kernel at the shapes of the main path (B5/B6 at the
    n = 64 θ-method operator and the n = 96 stiffness): error against its
    plain version, median device time over 25 launches, the plain
-   version's and one PyTorch library call's time, and the bound;
+   version's and one PyTorch library call's time, and the bound (B5/B6
+   also with their CTAs, x-ring length, shared memory and bytes moved);
 9. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
    with BiCGSTAB.
 
@@ -103,6 +110,58 @@ P1_FLOPS = {2: 57, 3: 168}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def start_ptxas(source: str):
+    """Compile ``csrc/<source>.cu`` to a cubin with ``ptxas -v`` (beside the
+    library build, which it does not replace); returns the process."""
+    from repro_torch.kernels import _cuda
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-cubin", "-Xptxas", "-v", "-o", str(_cuda.BUILD_DIR / f"{source}.cubin"),
+           str(_cuda.CSRC / f"{source}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc) -> list:
+    """Registers, static shared memory and spills of each kernel entry in
+    ``ptxas -v`` output (templates shown as kernel<type,G>)."""
+    import re
+
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"ptxas -v build failed:\n{out[-3000:]}")
+    rows, entry = [], None
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"([a-z_]+_kernel)I([fd])Li(\d+)E", name)
+            entry = {"kernel": f"{t.group(1)}<{'double' if t.group(2) == 'd' else 'float'},"
+                               f"{t.group(3)}>" if t else name}
+            rows.append(entry)
+        elif entry is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif entry is not None and "Used" in line and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["smem_static_bytes"] = int(m.group(1)) if m else 0
+            entry = None
+    return rows
+
+
+def stream_x_loads(plan, runs) -> int:
+    """Elements of x one launch of the streaming kernel copies: the whole
+    window at the start of each CTA run and at each reload, the slide
+    otherwise (a copy stops at N)."""
+    total, tpb = 0, plan.tiles_per_block
+    for c in range(len(runs) - 1):
+        for i, b in enumerate(range(runs[c] // tpb, (runs[c + 1] - 1) // tpb + 1)):
+            start = int(plan.starts[b])
+            lo = start if i == 0 or plan.load_lo[b] < 0 else int(plan.load_lo[b])
+            total += max(0, min(start + plan.window, plan.n_rows) - lo)
+    return total
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -227,6 +286,7 @@ def phase_kernels_small():
                           f"{name} N={n} L={width} block_n={block_n} nbuf={nbuf} {dtype}: {err}")
                     worst[name] = max(worst[name], err / scale)
                     cases += 1
+    cases += _stream_schedule_cases(worst)
     # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
     cols = np.repeat(np.arange(40_000, dtype=np.int32)[:, None], 3, axis=1)
     cols[::1024, 0] = np.minimum(np.arange(0, 40_000, 1024) + 30_000, 39_999)
@@ -245,6 +305,77 @@ def phase_kernels_small():
           "tolerance": "max|err| <= tol * "
           "max(1, max|plain|), tol 2e-4 (float32) / 1e-12 (float64)",
           "worst_scaled_err": worst})
+
+
+def _banded(rows, centre, half=40):
+    """ELL columns of a band: row r reads centre[r] - 3 .. centre[r] + half
+    (a 7-wide spread within), clipped to the matrix."""
+    offs = np.array([-3, -1, 0, 1, 2, half // 2, half])
+    return np.clip(centre[:, None] + offs[None, :], 0, rows - 1).astype(np.int32)
+
+
+def stream_schedule_plans():
+    """Plans that take each path of the streaming kernel's schedule:
+    name -> (plan, misaligned operands, what the plan must show)."""
+    from repro_torch.kernels import StreamPlan
+
+    r = np.arange(5000)
+    quarter = np.where(r < 2560, r // 4, 5000 - (5000 - r) // 4)
+    return {
+        # rows of a band in reverse order: every step of starts goes down
+        "decreasing_starts": (StreamPlan(_banded(5000, 4999 - r), 256), False,
+                              lambda p: (p.load_lo[1:] < 0).all()),
+        # a slow band that jumps 3N/4 ahead half way: slides, then one step
+        # past the ring
+        "step_past_ring": (StreamPlan(_banded(5000, quarter), 256), False,
+                           lambda p: ((p.load_lo[1:] < 0).sum() == 1
+                                      and (p.load_lo[1:] >= 0).sum() > 1)),
+        # starts at 1 mod 4, x and vals one element past an aligned address
+        "odd_starts_misaligned": (StreamPlan(_banded(5000, r + 4), 512), True,
+                                  lambda p: (p.starts[1:] % 4 == 1).all()),
+        # N and block_n multiples of neither 64 nor 128
+        "ragged_n_block": (StreamPlan(_banded(30_001, np.arange(30_001)), 1000), False,
+                           lambda p: p.n_rows % 128 and p.block_n % 64),
+        # one-tile blocks: every CTA run covers several blocks
+        "runs_over_blocks": (StreamPlan(_banded(40_000, np.arange(40_000)), 32), False,
+                             lambda p: p.tiles_per_block == 1 and p.n_tiles > 4 * 132),
+    }
+
+
+def _stream_schedule_cases(worst) -> int:
+    from repro_torch.kernels import galerkin_residual_ell_stream, spmv_ell_stream
+    from repro_torch.kernels.ref import galerkin_residual_ell_stream_ref, spmv_ell_stream_ref
+    from repro_torch.kernels.spmv_ell import MAX_BUFFERS
+
+    cases = 0
+    for label, (plan, misaligned, shows) in stream_schedule_plans().items():
+        check(bool(shows(plan)), f"plan {label} does not take the path it is for")
+        n, width = plan.n_rows, plan.width
+        cols_local, starts = plan.staged("cuda")
+        rng = np.random.default_rng(n + width)
+        for dtype in (torch.float32, torch.float64):
+            tol, skip = TOL[dtype], int(misaligned)
+
+            def operand(size, skip=0):
+                return torch.as_tensor(rng.normal(size=size + skip), dtype=dtype,
+                                       device="cuda")[skip:]
+
+            vals, x, f = operand(n * width, skip).view(n, width), operand(n, skip), operand(n)
+            if misaligned:
+                check(vals.data_ptr() % 16 != 0 and x.data_ptr() % 16 != 0,
+                      f"{label}: the operands are 16-byte aligned")
+            want = spmv_ell_stream_ref(vals, cols_local, starts, x, plan.block_n, plan.x_len)
+            want_r = want - f
+            for nbuf in range(1, MAX_BUFFERS + 1):
+                for name, got, ref in (
+                        ("spmv_ell_stream", spmv_ell_stream(vals, plan, x, nbuf=nbuf), want),
+                        ("galerkin_residual_ell_stream",
+                         galerkin_residual_ell_stream(vals, plan, x, f, nbuf=nbuf), want_r)):
+                    err, scale = max_err(got, ref)
+                    check(err <= tol * scale, f"{name} {label} nbuf={nbuf} {dtype}: {err}")
+                    worst[name] = max(worst[name], err / scale)
+                    cases += 1
+    return cases
 
 
 def phase_reference():
@@ -497,7 +628,7 @@ def phase_stream_solve():
     from repro_torch import kernels
     from repro_torch.core import unit_cube_tet
     from repro_torch.fem import PoissonProblem
-    from repro_torch.kernels.spmv_ell import BLOCK_N, N_BUFFERS
+    from repro_torch.kernels.spmv_ell import BLOCK_N
 
     prob, setup_s = timed(lambda: PoissonProblem(unit_cube_tet(STREAM_N), device="cuda"))
     k, _ = prob.assemble(f=1.0)
@@ -509,6 +640,8 @@ def phase_stream_solve():
     _, solve_s = timed(lambda: prob.solve(f=1.0, backend="ell_stream"))
     _, ell_s = timed(lambda: prob.solve(f=1.0, backend="ell"))
     plan = k.pattern.stream_plans()(BLOCK_N)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    nbuf = plan.depth(8, optin)
     max_u = float(res.u.max())
     du = float((res.u - res_ell.u).abs().max())
     out = {"phase": "stream_solve", "n": STREAM_N, "dofs": prob.space.num_dofs,
@@ -516,11 +649,10 @@ def phase_stream_solve():
            "iters": res.iters, "ell_iters": res_ell.iters, "residual": res.residual,
            "converged": res.converged, "max_u": max_u, "max_abs_diff_vs_ell": du,
            "first_solve_s": first_s, "solve_s": solve_s, "ell_solve_s": ell_s,
-           "plan": {"window": plan.window, "block_n": plan.block_n, "nbuf": N_BUFFERS,
+           "plan": {"window": plan.window, "ring": plan.ring, "block_n": plan.block_n,
+                    "nbuf": nbuf,
                     "n_blocks": plan.n_blocks, "ell_width": plan.width,
-                    "smem_bytes": plan.smem_bytes(N_BUFFERS, 8),
-                    "smem_optin_bytes":
-                        torch.cuda.get_device_properties(0).shared_memory_per_block_optin},
+                    "smem_bytes": plan.smem_bytes(nbuf, 8), "smem_optin_bytes": optin},
            "launches": launches}
     emit(out)
     check(res.converged and res_ell.converged, "n=96: a solve did not converge")
@@ -544,7 +676,9 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
                                          galerkin_residual_ell_stream_ref,
                                          local_stiffness_p1_ref, seg_reduce_ref, spmv_ell_ref,
                                          spmv_ell_stream_ref)
-    from repro_torch.kernels.spmv_ell import BLOCK_N, N_BUFFERS
+    from repro_torch.kernels.spmv_ell import BLOCK_N
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
 
     def bound(nbytes, flops):
         t_bytes, t_ops = nbytes / bw, flops / fp64
@@ -618,8 +752,9 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
                       "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
                       "bytes": nbytes}
     # B5 / B6 at the n = 64 θ-method operator (M + θΔtK, condensed) and the
-    # n = 96 stiffness; the bound is B3's (vals, cols, x, y [, f] once each):
-    # the window re-reads are overhead, counted in moved_bytes
+    # n = 96 stiffness; the bound is B3's (vals, cols, x, y [, f] once each);
+    # moved_bytes counts x as the kernel copies it (x_loaded elements: each
+    # CTA run's first window, then slides and reloads)
     stream = {}
     for label, op in (("theta_lhs_n64", theta_lhs), ("stiffness_n96", k_stream)):
         ell = csr_to_ell(op)
@@ -635,11 +770,14 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
         telemetry.reset()
         with telemetry.enabled():
             tuned = autotune_ell_stream(ell, x, block_candidates=(512, 1024, 2048, 4096, 8192),
-                                        nbuf_candidates=(1, 2, 3), iters=10)
+                                        nbuf_candidates=(1, 2, 3, 4, 6), iters=10)
             sweep = {key.split("{")[1].rstrip("}"): h["mean"]
                      for key, h in telemetry.snapshot()["histograms"].items()
                      if key.startswith("ell_stream_autotune_us")}
         telemetry.reset()
+        nbuf = plan.depth(8, optin)
+        _, runs, n_ctas = plan.schedule(x.device, nbuf, 8)
+        x_loaded = stream_x_loads(plan, runs.cpu().numpy())
         for name, fn, ref, lib, extra in (
             ("spmv_ell_stream", lambda: spmv_ell_stream(ell.vals, plan, x),
              lambda: spmv_ell_stream_ref(ell.vals, cols_local, starts, x, plan.block_n,
@@ -659,12 +797,14 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
             b_ms, b_by = bound(nbytes, 2 * op.nnz + extra * n)
             stream.setdefault(name, {})[label] = {
                 "shape": f"N={n} L={width} nnz={op.nnz} W={plan.window} "
-                         f"block_n={plan.block_n} nbuf={N_BUFFERS}",
+                         f"block_n={plan.block_n} nbuf={nbuf}",
                 "max_abs_err": err, "scale": scale, "ms": time_ms(fn),
                 "plain_ms": time_ms(ref), "library_ms": time_ms(lib), "bound_ms": b_ms,
                 "bound_by": b_by, "bytes": nbytes,
-                "moved_bytes": nbytes + 8 * plan.n_blocks * plan.window,
-                "smem_bytes": plan.smem_bytes(N_BUFFERS, 8), "spmv_ell_ms": b3_ms,
+                "moved_bytes": nbytes - 8 * n + 8 * x_loaded, "x_loaded": x_loaded,
+                "ctas": n_ctas, "ring_elems": plan.ring, "n_blocks": plan.n_blocks,
+                "reloads": int((plan.load_lo[1:] < 0).sum()),
+                "smem_bytes": plan.smem_bytes(nbuf, 8), "spmv_ell_ms": b3_ms,
                 "autotune": {"block_n": tuned[0], "nbuf": tuned[1], "wall_us": sweep}}
     for name, by_label in stream.items():
         rows[name] = {**by_label["theta_lhs_n64"], "n96": by_label["stiffness_n96"]}
@@ -703,10 +843,16 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     bw, fp64 = card_peaks(name)
     t0 = time.perf_counter()
-    kernels.build()
+    ptxas = start_ptxas("spmv_ell_stream")
+    try:
+        kernels.build()
+    finally:
+        report = ptxas_report(ptxas)
     emit({"phase": "device", "nvidia_smi": smi, "device": name, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "peak_bytes_per_s": bw, "peak_fp64_per_s": fp64})
+    emit({"phase": "device", "ptxas": "src/repro_torch/kernels/csrc/spmv_ell_stream.cu",
+          "kernels": report})
 
     phase_kernels_small()
     phase_reference()

@@ -38,5 +38,6 @@ from .spmv_ell import (  # noqa: F401
     galerkin_residual_ell_stream,
     spmv_ell,
     spmv_ell_stream,
+    stream_runs,
     stream_smem_bytes,
 )

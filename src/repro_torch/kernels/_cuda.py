@@ -9,7 +9,9 @@ sources in parallel (one ``nvcc`` process each).
 
 Every exported C function launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; :func:`launch` raises on a
-non-zero code and counts the launch in :data:`LAUNCHES`.
+non-zero code and counts the launch in :data:`LAUNCHES`.  A host-side query
+(an occupancy lookup) returns its int result, or a negated CUDA error code,
+and is called with :func:`query`.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "SOURCES", "build", "check_operands", "launch", "reset_launches",
-           "symbol"]
+__all__ = ["LAUNCHES", "SOURCES", "build", "check_operands", "launch", "query",
+           "reset_launches", "symbol"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -134,6 +136,22 @@ def launch(counter: str, source: str, symbol: str, *args) -> None:
             f"({lib.tg_error_string(err).decode()})"
         )
     LAUNCHES[counter] += 1
+
+
+def query(source: str, symbol: str, device, *args: int) -> int:
+    """Call the host-side query ``symbol`` of library ``source`` with int
+    arguments on ``device``; returns its result, which is non-negative, or
+    raises on the CUDA error it returns negated."""
+    lib = _library(source)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_longlong] * len(args)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        out = fn(*(int(a) for a in args))
+    if out < 0:
+        raise RuntimeError(f"CUDA query {symbol} failed: error {-out} "
+                           f"({lib.tg_error_string(-out).decode()})")
+    return out
 
 
 def symbol(base: str, dtype: torch.dtype) -> str:

@@ -13,219 +13,467 @@
 //
 // Bound on an H100: memory.  Per row, L values and L rebased int32 columns are
 // read once (12 L bytes in float64) for 2 L flops, as for the broadcast-plan
-// kernel in spmv_ell.cu.  Each block also reads its x-window (W elements); the
-// windows of neighbouring blocks overlap, so most of those reads hit L2, and
-// they are overhead, not part of the bound.
+// kernel in spmv_ell.cu.  x is copied about once per CTA run (the first
+// window, then slides), overhead on top of the bound.
 //
-// Design.  The TPU kernel runs one program that walks the row blocks in order,
-// DMA-ing vals, cols and the x-window of each block into VMEM nbuf deep.  A
-// 4096 x 15 float64 vals tile alone (480 KB) is twice what one H100 block may
-// hold (227 KB), and the blocks of a GPU run in parallel, so here:
-//   * one CTA per row block.  It copies its x-window into shared memory once
-//     (cp.async, bounds-checked against N: positions past the end of x read
-//     as 0, as the zero padding of x up to x_len does on the TPU),
-//     single-buffered: at N = 912,673 (unit_cube_tet(96)) one float64 window
-//     is 157 KB and two no longer fit;
-//   * the CTA's rows stream through shared memory in tiles of kTileRows rows
-//     of vals and cols_local (each a contiguous run of kTileRows * L words,
-//     copied 16 bytes at a time where aligned) and, for the residual, of f,
-//     nbuf tiles deep: cp.async groups keep nbuf - 1 tiles in flight while
-//     one is consumed; nbuf = 1 is no overlap.  (Reading f[row] from global
-//     memory at the end of each row instead put one memory latency per pass
-//     on the critical path: the residual took 1.7x the SpMV's time.)
-//   * a group of G lanes per row, G the power of two >= L (at most 32), reads
-//     the tile in shared memory and gathers x from the window; the group sums
-//     with warp shuffles, in the same order as spmv_ell.cu, so B5 and B3 give
-//     the same bits on the same operator.
-// Shared memory per CTA: W * sizeof(T) + nbuf * kTileRows * (L * (sizeof(T) + 4)
-// + sizeof(T)) bytes (stream_smem_bytes in spmv_ell.py, which the wrapper
-// checks against the card's opt-in limit before launch; the SpMV leaves the f
-// tiles unused).  The launcher raises the kernel's dynamic shared-memory
-// limit to that size.
-//
-// Shape and defaults.  512 threads and 128-row tiles (with block_n = 1024,
-// nbuf = 2, in spmv_ell.py): on the 3D main path (unit_cube_tet(64),
-// N = 274,625, L = 15) that is 269 CTAs of 123 KB in float64 (W = 9,728),
-// one resident per SM, so the grid covers the 132 SMs about twice; at
-// unit_cube_tet(96) 892 CTAs of 204 KB (W = 20,096).  block_n = 4096, the TPU
-// default, gives 68 CTAs at n = 64 and leaves half the SMs idle.  A sweep of
-// 256/512/1024 threads by 64/128-row tiles on the card found 16 warps per CTA
-// with 128-row tiles faster than two resident CTAs of 8 warps with 64-row
-// tiles (the first design: 0.061 ms at n = 64 and 0.196 ms at n = 96, from
-// chip_smoke.py): with one or two CTAs per SM, the warps and tiles in flight
-// per CTA are what hide the memory latency.
+// Design.  The TPU kernel is one program that walks the row blocks in order
+// and prefetches block b + nbuf's vals, cols and x-window while it sums block
+// b.  Here a persistent CTA does that walk over a run of rows:
+//   * Grid.  One CTA per SM, or as many as fit (the wrapper asks the occupancy
+//     API), never more than there are tiles.  The rows are cut into tiles of
+//     kTileRows rows that never straddle a plan block, and the host balances
+//     the tiles over the CTAs (runs[c] .. runs[c + 1], within one tile of each
+//     other), so there is no wave tail.  A run may start or end inside a plan
+//     block; its rows still read that block's window.
+//   * Sliding x-window.  The CTA keeps x in a ring of R elements of shared
+//     memory (R >= W plus the plan's largest forward step of `starts`, up to
+//     W; host-computed).  Position p sits in slot (p + shift) mod R, where
+//     shift is x's misalignment in elements, so a slot and its source agree
+//     modulo 16 bytes.  When the walk moves on from block b - 1 to b it copies
+//     only x[load_lo[b], start_b + W): the slots it overwrites held positions
+//     below start_{b-1}, which block b - 1 no longer reads, so the copy is
+//     issued while block b - 1's last tiles are still being summed (only
+//     block b - 2 must be done).  Where `starts` goes down or steps further
+//     than R - W (load_lo[b] < 0), and at the start of every run, the CTA
+//     waits until the previous block is done and loads the whole window.  A
+//     gather indexes the ring with one compare-and-subtract.  Every column is
+//     below N, so a copy stops at N: window positions past the end of x (the
+//     TPU kernel's zero padding up to x_len) are never read.  Each block's
+//     start and load_lo are read one block ahead.
+//   * Bulk-copy stage ring.  Warp 0 is the producer: it fills an nbuf-stage
+//     ring of vals, cols and f tiles, and the window, with cp.async.bulk (the
+//     1-D TMA copy), one copy per lane (vals, cols, f on lanes 0-2; the two
+//     pieces of a wrapping window on lanes 0-1).  A bulk copy needs 16-byte-
+//     aligned ends, so a tile lands at its source's address modulo 16 and the
+//     lane copies the unaligned head and tail (odd window starts, the ragged
+//     last tile, misaligned operands) word by word.  Each fill is one
+//     mbarrier arrival with its byte count (full[s], win_full by block
+//     parity); the consumers hand a stage back on a named barrier (bar.arrive;
+//     the producer bar.syncs before the refill), and report finished blocks on
+//     blk_done (by block parity), which a window load waits for.
+//   * Consumers.  16 warps; a group of G lanes per row, G the power of two
+//     >= L (at most 32); a warp sums all its rows of a tile at once, for
+//     overlap, each row in the order of spmv_ell.cu (the lanes' products,
+//     then warp shuffles), so B5 and B3 give the same bits.
+// Shared memory per CTA (stream_smem_bytes in spmv_ell.py; the launcher
+// refuses any other size): R * sizeof(T) for the ring, nbuf stages of
+// kTileRows * L * (sizeof(T) + 4) + kTileRows * sizeof(T) + 48 bytes, and
+// 8 * (nbuf + 4) bytes of mbarriers.  Independent of N.  On the 3D main path
+// (L = 15, float64, block_n 1024) that is 87 KB of ring and 24 KB a stage at
+// unit_cube_tet(64), and 170 KB of ring at unit_cube_tet(96), where two
+// stages fit.
 #include <cstdint>
 
 #include "tg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kTileRows = 128;  // keep in step with TILE_ROWS in spmv_ell.py
-constexpr int kMaxBuffers = 4;  // cp_async_wait below covers 0 .. kMaxBuffers - 1
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // warp 0 is the producer
+constexpr int kTileRows = 128;             // keep in step with TILE_ROWS in spmv_ell.py
+constexpr int kMaxBuffers = 8;             // keep in step with MAX_BUFFERS in spmv_ell.py
 
-template <int B>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (B == 16) {  // 16-byte copies bypass L1: the tiles are read once
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(B)
-                 : "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
-// The CTA copies a run of `count` elements into shared memory: in 16-byte
-// pieces where both ends are 16-byte aligned and the run divides evenly
-// (the block-uniform test keeps the warps together), else element by element.
-template <typename E>
-__device__ __forceinline__ void copy_run(E* dst, const E* src, int count) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(E));
-  const uintptr_t ends = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
-  if ((ends & 15) == 0 && count % kVec == 0) {
-    for (int i = threadIdx.x * kVec; i < count; i += kThreads * kVec) {
-      cp_async<16>(dst + i, src + i);
-    }
-  } else {
-    for (int i = threadIdx.x; i < count; i += kThreads) cp_async<sizeof(E)>(dst + i, src + i);
-  }
+// Named barrier `id` (1..kMaxBuffers: stage id - 1) between the consumers,
+// which arrive when they are done with the stage, and the producer, which
+// waits there before it refills the stage.  A hardware barrier: no shared
+// memory word for 16 warps to update one by one.
+__device__ __forceinline__ void stage_done(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void stage_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
 }
 
-// wait until at most `pending` committed groups are still in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const T* __restrict__ vals, const int* __restrict__ cols_local,
-              const int* __restrict__ starts, const T* __restrict__ x,
-              const T* __restrict__ f, T* __restrict__ y, long long n_rows, int width,
-              int block_n, int window, int tile_rows, int nbuf) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tile_elems = tile_rows * width;
-  T* xw = reinterpret_cast<T*>(smem);                  // the block's x-window
-  T* vbuf = xw + window;                               // nbuf tiles of vals
-  T* fbuf = vbuf + nbuf * tile_elems;                  // nbuf tiles of f (residual)
-  int* cbuf = reinterpret_cast<int*>(fbuf + nbuf * tile_rows);  // nbuf tiles of cols
+// One lane's part of a stage fill: copy `bytes` bytes from src to dst, where
+// dst and src agree modulo 16 (both are 4-byte aligned).
+struct Part {
+  unsigned char* dst = nullptr;
+  const unsigned char* src = nullptr;
+  unsigned bytes = 0;
+};
 
-  const long long row0 = static_cast<long long>(blockIdx.x) * block_n;
-  const int rows = static_cast<int>(min(static_cast<long long>(block_n), n_rows - row0));
-  const int n_tiles = (rows + tile_rows - 1) / tile_rows;
-  const long long start = starts[blockIdx.x];
-
-  // the window joins the first cp.async group, so the first wait covers it
-  const int avail = static_cast<int>(min(static_cast<long long>(window), n_rows - start));
-  copy_run(xw, x + start, avail);
-  for (int j = avail + threadIdx.x; j < window; j += kThreads) xw[j] = T(0);
-
-  auto load_tile = [&](int t) {
-    const int slot = t % nbuf;
-    const long long r0 = row0 + static_cast<long long>(t) * tile_rows;
-    const int t_rows = min(tile_rows, rows - t * tile_rows);
-    copy_run(vbuf + slot * tile_elems, vals + r0 * width, t_rows * width);
-    copy_run(cbuf + slot * tile_elems, cols_local + r0 * width, t_rows * width);
-    if (f != nullptr) copy_run(fbuf + slot * tile_rows, f + r0, t_rows);
-  };
-
-  // prologue: tiles 0 .. nbuf - 2 in flight (one group each, empty past the end)
-  for (int t = 0; t < nbuf - 1; ++t) {
-    if (t < n_tiles) load_tile(t);
-    cp_async_commit();
+// Each lane of the producer warp holds one part (or none).  A bulk copy needs
+// 16-byte-aligned ends, so the lane copies its part's unaligned head and tail
+// (at most 12 bytes each) word by word, fences those plain writes against
+// later bulk writes to the same bytes, and bulk-copies the aligned middle.
+// The barrier gets one arrival (count 1), from lane 0 with the warp's total
+// bulk bytes, after the warp syncs so that lane 0's release covers every
+// lane's plain writes; the bulk copies are issued after it.
+__device__ __forceinline__ void fill(const Part& part, uint64_t* bar, int lane) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(part.src);
+  const uintptr_t e = a + part.bytes;
+  uintptr_t lo = (a + 15) & ~uintptr_t(15);
+  uintptr_t hi = e & ~uintptr_t(15);
+  if (hi <= lo) lo = hi = e;  // too short: all plain
+  const unsigned head = static_cast<unsigned>(lo - a);
+  const unsigned tail = static_cast<unsigned>(hi - a);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(part.src);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(part.dst);
+  for (unsigned w = 0; w < head / 4; ++w) dst[w] = src[w];
+  for (unsigned w = tail / 4; w < part.bytes / 4; ++w) dst[w] = src[w];
+  if (head != 0 || tail != part.bytes) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-
-  constexpr int kGroups = kThreads / G;
-  const int group = threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  for (int t = 0; t < n_tiles; ++t) {
-    // refill the slot consumed at t - 1 (freed by the barrier that ended it)
-    const int ahead = t + nbuf - 1;
-    if (ahead < n_tiles) load_tile(ahead);
-    cp_async_commit();
-    cp_async_wait(nbuf - 1);  // tile t (and the window) has landed
-    __syncthreads();
-
-    const int slot = t % nbuf;
-    const T* vt = vbuf + slot * tile_elems;
-    const int* ct = cbuf + slot * tile_elems;
-    const T* ft = fbuf + slot * tile_rows;
-    const int t_rows = min(tile_rows, rows - t * tile_rows);
-    // every lane of a warp reaches the shuffles: the trip count is block-uniform
-    for (int r0 = 0; r0 < t_rows; r0 += kGroups) {
-      const int r = r0 + group;
-      T acc = T(0);
-      if (r < t_rows) {
-        const int base = r * width;
-        for (int l = lane; l < width; l += G) acc += vt[base + l] * xw[ct[base + l]];
-      }
-#pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, G);
-      if (lane == 0 && r < t_rows) {
-        const long long row = row0 + static_cast<long long>(t) * tile_rows + r;
-        y[row] = f != nullptr ? acc - ft[r] : acc;
-      }
-    }
-    __syncthreads();  // the slot may be refilled at t + 1
-  }
-}
-
-template <typename T, int G>
-cudaError_t launch_group(const T* vals, const int* cols_local, const int* starts, const T* x,
-                         const T* f, T* y, long long n_rows, int width, int block_n, int window,
-                         int tile_rows, int nbuf, size_t smem, cudaStream_t s) {
-  auto kernel = stream_kernel<T, G>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long n_blocks = (n_rows + block_n - 1) / block_n;
-  kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem, s>>>(
-      vals, cols_local, starts, x, f, y, n_rows, width, block_n, window, tile_rows, nbuf);
-  return cudaGetLastError();
+  const unsigned bulk = static_cast<unsigned>(hi - lo);
+  const unsigned total = __reduce_add_sync(0xffffffffu, bulk);
+  if (lane == 0) mbar_arrive_expect_tx(bar, total);
+  __syncwarp();
+  if (bulk) bulk_copy(part.dst + head, part.src + head, bulk, bar);
 }
 
 template <typename T>
-int launch(const void* vals, const void* cols_local, const void* starts, const void* x,
-           const void* f, void* y, long long n_rows, long long width, long long block_n,
-           long long window, long long nbuf, void* stream) {
+struct Layout {
+  T* ring;
+  unsigned char* stages;
+  size_t vals_bytes, cols_bytes, stage_bytes;
+  uint64_t* full;      // [nbuf]: a stage's tiles have landed
+  uint64_t* win_full;  // [2]: the window of block i has landed (by i's parity)
+  uint64_t* blk_done;  // [2]: the consumers are done with block i (by i's parity)
+
+  __device__ Layout(unsigned char* smem, int ring_len, int width, int nbuf) {
+    ring = reinterpret_cast<T*>(smem);
+    stages = smem + static_cast<size_t>(ring_len) * sizeof(T);
+    vals_bytes = static_cast<size_t>(kTileRows) * width * sizeof(T) + 16;
+    cols_bytes = static_cast<size_t>(kTileRows) * width * sizeof(int) + 16;
+    stage_bytes = vals_bytes + cols_bytes + kTileRows * sizeof(T) + 16;
+    full = reinterpret_cast<uint64_t*>(stages + nbuf * stage_bytes);
+    win_full = full + nbuf;
+    blk_done = win_full + 2;
+  }
+  // a tile's array inside a stage lands at its source's address modulo 16
+  template <typename E>
+  __device__ E* at(unsigned char* stage, size_t offset, const E* src) const {
+    return reinterpret_cast<E*>(stage + offset + (reinterpret_cast<uintptr_t>(src) & 15));
+  }
+};
+
+// The walk over a CTA's run of tiles, advanced without divisions: the tile
+// (plan block, tile within it, first row, rows) and its stage of the ring.
+struct Walk {
+  int tiles_per_block, block_n, nbuf;
+  long long n_rows;
+  int block, j, stage;
+  unsigned round;  // times the stage ring has wrapped: the stage's barrier phase
+  long long row0;
+  int rows;
+
+  __device__ Walk(int tile, int tpb, int bn, int nb, long long n)
+      : tiles_per_block(tpb), block_n(bn), nbuf(nb), n_rows(n), stage(0), round(0) {
+    block = tile / tpb;
+    j = tile - block * tpb;
+    settle();
+  }
+  __device__ void settle() {
+    row0 = static_cast<long long>(block) * block_n + static_cast<long long>(j) * kTileRows;
+    rows = static_cast<int>(min(static_cast<long long>(min(kTileRows, block_n - j * kTileRows)),
+                                n_rows - row0));
+  }
+  __device__ void next() {
+    if (++j == tiles_per_block) {
+      j = 0;
+      ++block;
+    }
+    if (++stage == nbuf) {
+      stage = 0;
+      ++round;
+    }
+    settle();
+  }
+};
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+stream_kernel(const T* __restrict__ vals, const int* __restrict__ cols_local,
+              const int* __restrict__ starts, const int* __restrict__ load_lo,
+              const int* __restrict__ runs, const T* __restrict__ x, const T* __restrict__ f,
+              T* __restrict__ y, long long n_rows, int width, int block_n, int window,
+              int ring_len, int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<T> lay(smem, ring_len, width, nbuf);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nbuf; ++s) mbar_init(&lay.full[s], 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&lay.win_full[i], 1);
+      mbar_init(&lay.blk_done[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_per_block = (block_n + kTileRows - 1) / kTileRows;
+  const int tile_lo = runs[blockIdx.x];
+  const int n_tiles = runs[blockIdx.x + 1] - tile_lo;
+  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(x) & 15) / sizeof(T));
+  const size_t cols_at = lay.vals_bytes;
+  const size_t f_at = lay.vals_bytes + lay.cols_bytes;
+  Walk t(tile_lo, tiles_per_block, block_n, nbuf, n_rows);
+  // each block's start and load_lo are read one block ahead, so that no
+  // global load waits at a block boundary
+  const int last_block = static_cast<int>((n_rows - 1) / block_n);
+  int next_start = starts[t.block];
+  int next_lo = load_lo[t.block];
+
+  if (warp == 0) {
+    // ---- producer: the window of each block, then its tiles, in run order
+    int local = -1;
+    for (int i = 0; i < n_tiles; ++i, t.next()) {
+      if (i == 0 || t.j == 0) {
+        ++local;
+        const long long start = next_start;
+        const int from = next_lo;
+        if (t.block < last_block) {
+          next_start = starts[t.block + 1];
+          next_lo = load_lo[t.block + 1];
+        }
+        const bool reload = local == 0 || from < 0;
+        // the slots this load overwrites were last read by block local - 1
+        // (whole window) or local - 2 (slide)
+        const int after = reload ? local - 1 : local - 2;
+        if (after >= 0) mbar_wait(&lay.blk_done[after & 1], (after >> 1) & 1);
+        const long long lo = reload ? start : from;
+        // window positions at or past N are never gathered (every column is
+        // below N), so the copy stops at N
+        const long long hx = min(start + window, n_rows);
+        // x[lo, hx) in at most two pieces (the ring wraps), lanes 0 and 1
+        Part part;
+        if (lo < hx) {
+          const int slot = static_cast<int>((lo + shift) % ring_len);
+          const long long first = min(hx - lo, static_cast<long long>(ring_len - slot));
+          if (lane == 0) {
+            part.dst = reinterpret_cast<unsigned char*>(lay.ring + slot);
+            part.src = reinterpret_cast<const unsigned char*>(x + lo);
+            part.bytes = static_cast<unsigned>(first * sizeof(T));
+          } else if (lane == 1 && first < hx - lo) {
+            part.dst = reinterpret_cast<unsigned char*>(lay.ring);
+            part.src = reinterpret_cast<const unsigned char*>(x + lo + first);
+            part.bytes = static_cast<unsigned>((hx - lo - first) * sizeof(T));
+          }
+        }
+        fill(part, &lay.win_full[local & 1], lane);
+      }
+      if (i >= nbuf) stage_wait(t.stage + 1);
+      // vals, cols and f of the tile: lanes 0, 1 and 2
+      unsigned char* stage = lay.stages + t.stage * lay.stage_bytes;
+      Part part;
+      if (lane == 0) {
+        const T* src = vals + t.row0 * width;
+        part.dst = reinterpret_cast<unsigned char*>(lay.at(stage, 0, src));
+        part.src = reinterpret_cast<const unsigned char*>(src);
+        part.bytes = static_cast<unsigned>(t.rows * width * sizeof(T));
+      } else if (lane == 1) {
+        const int* src = cols_local + t.row0 * width;
+        part.dst = reinterpret_cast<unsigned char*>(lay.at(stage, cols_at, src));
+        part.src = reinterpret_cast<const unsigned char*>(src);
+        part.bytes = static_cast<unsigned>(t.rows * width * sizeof(int));
+      } else if (lane == 2 && f != nullptr) {
+        const T* src = f + t.row0;
+        part.dst = reinterpret_cast<unsigned char*>(lay.at(stage, f_at, src));
+        part.src = reinterpret_cast<const unsigned char*>(src);
+        part.bytes = static_cast<unsigned>(t.rows * sizeof(T));
+      }
+      fill(part, &lay.full[t.stage], lane);
+    }
+    // meet the consumers at the stages of the last tiles, which no refill waited for
+    for (int i = max(n_tiles - nbuf, 0); i < n_tiles; ++i) stage_wait(i % nbuf + 1);
+    return;
+  }
+
+  // ---- consumers: a group of G lanes per row
+  constexpr int kGroups = kConsumers / G;
+  constexpr int kPasses = (kTileRows + kGroups - 1) / kGroups;
+  const int c = threadIdx.x - 32;
+  const int group = c / G;
+  const int glane = c % G;
+  const T* ring = lay.ring;
+  int local = -1;
+  int base = 0;  // ring slot of the current block's window start
+  for (int i = 0; i < n_tiles; ++i, t.next()) {
+    if (i == 0 || t.j == 0) {
+      ++local;
+      mbar_wait(&lay.win_full[local & 1], (local >> 1) & 1);
+      base = static_cast<int>((static_cast<long long>(next_start) + shift) % ring_len);
+      if (t.block < last_block) next_start = starts[t.block + 1];
+    }
+    mbar_wait(&lay.full[t.stage], t.round & 1);
+    unsigned char* stage = lay.stages + t.stage * lay.stage_bytes;
+    const T* vt = lay.at(stage, 0, vals + t.row0 * width);
+    const int* ct = lay.at(stage, cols_at, cols_local + t.row0 * width);
+    const T* ft = f != nullptr ? lay.at(stage, f_at, f + t.row0) : nullptr;
+    // all of a warp's rows of the tile at once (kPasses independent sums, so
+    // their loads and shuffles overlap); each sum takes its slots in B3's
+    // order and every lane reaches the shuffles
+    T acc[kPasses];
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) acc[u] = T(0);
+    for (int l = glane; l < width; l += G) {
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u) {
+        const int r = u * kGroups + group;
+        if (r < t.rows) {
+          int slot = base + ct[r * width + l];
+          if (slot >= ring_len) slot -= ring_len;
+          acc[u] += vt[r * width + l] * ring[slot];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u) acc[u] += __shfl_down_sync(0xffffffffu, acc[u], off, G);
+    }
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      const int r = u * kGroups + group;
+      if (glane == 0 && r < t.rows) y[t.row0 + r] = ft != nullptr ? acc[u] - ft[r] : acc[u];
+    }
+    stage_done(t.stage + 1);
+    if (i + 1 == n_tiles || t.j + 1 == tiles_per_block) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&lay.blk_done[local & 1]);
+    }
+  }
+}
+
+// Dynamic shared memory of one CTA (mirrors stream_smem_bytes in spmv_ell.py).
+size_t smem_need(int ring_len, int width, int nbuf, size_t item) {
+  const size_t stage = static_cast<size_t>(kTileRows) * width * (item + sizeof(int)) +
+                       kTileRows * item + 48;
+  return static_cast<size_t>(ring_len) * item + nbuf * stage + 8 * (nbuf + 4);
+}
+
+int group_of(long long width) {
+  int g = 1;
+  while (g < width && g < 32) g <<= 1;
+  return g;
+}
+
+template <typename T, int G>
+cudaError_t launch_group(const T* vals, const int* cols_local, const int* starts,
+                         const int* load_lo, const int* runs, const T* x, const T* f, T* y,
+                         long long n_rows, int width, int block_n, int window, int ring_len,
+                         int nbuf, int n_ctas, size_t smem, cudaStream_t s) {
+  auto kernel = stream_kernel<T, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(n_ctas), kThreads, smem, s>>>(
+      vals, cols_local, starts, load_lo, runs, x, f, y, n_rows, width, block_n, window, ring_len,
+      nbuf);
+  return cudaGetLastError();
+}
+
+template <typename T, int G>
+int occupancy(size_t smem) {
+  auto kernel = stream_kernel<T, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return n;
+}
+
+template <typename T>
+int ctas_per_sm(long long width, long long smem) {
+  if (width < 1 || smem < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t sm = static_cast<size_t>(smem);
+  switch (group_of(width)) {
+    case 1: return occupancy<T, 1>(sm);
+    case 2: return occupancy<T, 2>(sm);
+    case 4: return occupancy<T, 4>(sm);
+    case 8: return occupancy<T, 8>(sm);
+    case 16: return occupancy<T, 16>(sm);
+    default: return occupancy<T, 32>(sm);
+  }
+}
+
+template <typename T>
+int launch(const void* vals, const void* cols_local, const void* starts, const void* load_lo,
+           const void* runs, const void* x, const void* f, void* y, long long n_rows,
+           long long width, long long block_n, long long window, long long ring_len,
+           long long nbuf, long long n_ctas, long long smem, void* stream) {
   if (n_rows <= 0) return 0;
-  if (width < 1 || block_n < 1 || window < 1 || nbuf < 1 || nbuf > kMaxBuffers) {
+  // the ring's bytes are a multiple of 16, so slot and source agree modulo 16
+  if (width < 1 || block_n < 1 || window < 1 || ring_len < window || ring_len % 4 != 0 ||
+      nbuf < 1 || nbuf > kMaxBuffers || n_ctas < 1 ||
+      smem != static_cast<long long>(smem_need(static_cast<int>(ring_len), static_cast<int>(width),
+                                               static_cast<int>(nbuf), sizeof(T)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* v = static_cast<const T*>(vals);
   const int* c = static_cast<const int*>(cols_local);
   const int* st = static_cast<const int*>(starts);
+  const int* ll = static_cast<const int*>(load_lo);
+  const int* ru = static_cast<const int*>(runs);
   const T* xx = static_cast<const T*>(x);
   const T* ff = static_cast<const T*>(f);
   T* yy = static_cast<T*>(y);
   const int w = static_cast<int>(width);
   const int bn = static_cast<int>(block_n);
   const int win = static_cast<int>(window);
-  const int tile_rows = bn < kTileRows ? bn : kTileRows;
+  const int rl = static_cast<int>(ring_len);
   const int nb = static_cast<int>(nbuf);
-  const size_t smem =
-      static_cast<size_t>(win) * sizeof(T) +
-      static_cast<size_t>(nb) * tile_rows * (w * (sizeof(T) + sizeof(int)) + sizeof(T));
+  const int nc = static_cast<int>(n_ctas);
+  const size_t sm = static_cast<size_t>(smem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int g = 1;
-  while (g < w && g < 32) g <<= 1;
   cudaError_t err;
-  switch (g) {
-    case 1: err = launch_group<T, 1>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
-    case 2: err = launch_group<T, 2>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
-    case 4: err = launch_group<T, 4>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
-    case 8: err = launch_group<T, 8>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
-    case 16: err = launch_group<T, 16>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
-    default: err = launch_group<T, 32>(v, c, st, xx, ff, yy, n_rows, w, bn, win, tile_rows, nb, smem, s); break;
+  switch (group_of(width)) {
+    case 1: err = launch_group<T, 1>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
+    case 2: err = launch_group<T, 2>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
+    case 4: err = launch_group<T, 4>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
+    case 8: err = launch_group<T, 8>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
+    case 16: err = launch_group<T, 16>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
+    default: err = launch_group<T, 32>(v, c, st, ll, ru, xx, ff, yy, n_rows, w, bn, win, rl, nb, nc, sm, s); break;
   }
   if (err != cudaSuccess) cudaGetLastError();  // clear it: the wrapper raises
   return static_cast<int>(err);
@@ -233,36 +481,52 @@ int launch(const void* vals, const void* cols_local, const void* starts, const v
 
 }  // namespace
 
+// CTAs of the streaming kernel that fit one SM at this width and footprint,
+// or minus a CUDA error code.
+TG_EXPORT int tg_stream_ctas_per_sm_f32(long long width, long long smem) {
+  return ctas_per_sm<float>(width, smem);
+}
+
+TG_EXPORT int tg_stream_ctas_per_sm_f64(long long width, long long smem) {
+  return ctas_per_sm<double>(width, smem);
+}
+
 TG_EXPORT int tg_spmv_ell_stream_f32(const void* vals, const void* cols_local, const void* starts,
-                                     const void* x, void* y, long long n_rows, long long width,
-                                     long long block_n, long long window, long long nbuf,
+                                     const void* load_lo, const void* runs, const void* x,
+                                     void* y, long long n_rows, long long width,
+                                     long long block_n, long long window, long long ring_len,
+                                     long long nbuf, long long n_ctas, long long smem,
                                      void* stream) {
-  return launch<float>(vals, cols_local, starts, x, nullptr, y, n_rows, width, block_n, window,
-                       nbuf, stream);
+  return launch<float>(vals, cols_local, starts, load_lo, runs, x, nullptr, y, n_rows, width,
+                       block_n, window, ring_len, nbuf, n_ctas, smem, stream);
 }
 
 TG_EXPORT int tg_spmv_ell_stream_f64(const void* vals, const void* cols_local, const void* starts,
-                                     const void* x, void* y, long long n_rows, long long width,
-                                     long long block_n, long long window, long long nbuf,
+                                     const void* load_lo, const void* runs, const void* x,
+                                     void* y, long long n_rows, long long width,
+                                     long long block_n, long long window, long long ring_len,
+                                     long long nbuf, long long n_ctas, long long smem,
                                      void* stream) {
-  return launch<double>(vals, cols_local, starts, x, nullptr, y, n_rows, width, block_n, window,
-                        nbuf, stream);
+  return launch<double>(vals, cols_local, starts, load_lo, runs, x, nullptr, y, n_rows, width,
+                        block_n, window, ring_len, nbuf, n_ctas, smem, stream);
 }
 
 TG_EXPORT int tg_residual_ell_stream_f32(const void* vals, const void* cols_local,
-                                         const void* starts, const void* u, const void* f,
-                                         void* y, long long n_rows, long long width,
-                                         long long block_n, long long window, long long nbuf,
-                                         void* stream) {
-  return launch<float>(vals, cols_local, starts, u, f, y, n_rows, width, block_n, window, nbuf,
-                       stream);
+                                         const void* starts, const void* load_lo,
+                                         const void* runs, const void* u, const void* f, void* y,
+                                         long long n_rows, long long width, long long block_n,
+                                         long long window, long long ring_len, long long nbuf,
+                                         long long n_ctas, long long smem, void* stream) {
+  return launch<float>(vals, cols_local, starts, load_lo, runs, u, f, y, n_rows, width, block_n,
+                       window, ring_len, nbuf, n_ctas, smem, stream);
 }
 
 TG_EXPORT int tg_residual_ell_stream_f64(const void* vals, const void* cols_local,
-                                         const void* starts, const void* u, const void* f,
-                                         void* y, long long n_rows, long long width,
-                                         long long block_n, long long window, long long nbuf,
-                                         void* stream) {
-  return launch<double>(vals, cols_local, starts, u, f, y, n_rows, width, block_n, window, nbuf,
-                        stream);
+                                         const void* starts, const void* load_lo,
+                                         const void* runs, const void* u, const void* f, void* y,
+                                         long long n_rows, long long width, long long block_n,
+                                         long long window, long long ring_len, long long nbuf,
+                                         long long n_ctas, long long smem, void* stream) {
+  return launch<double>(vals, cols_local, starts, load_lo, runs, u, f, y, n_rows, width, block_n,
+                        window, ring_len, nbuf, n_ctas, smem, stream);
 }

@@ -9,7 +9,6 @@ from __future__ import annotations
 from .local_assembly import local_stiffness_p1
 from .spmv_ell import (
     BLOCK_N,
-    N_BUFFERS,
     autotune_stream,
     galerkin_residual_ell,
     galerkin_residual_ell_stream,
@@ -43,13 +42,13 @@ def ell_residual(ell, u, f):
     return galerkin_residual_ell(ell.vals, ell.cols_dev, u, f)
 
 
-def ell_matvec_stream(ell, x, *, block_n: int = BLOCK_N, nbuf: int = N_BUFFERS):
+def ell_matvec_stream(ell, x, *, block_n: int = BLOCK_N, nbuf: int | None = None):
     """Streaming SpMV on an ELL operator, with the plan its sparsity pattern
     caches per ``block_n`` (staged on the device once)."""
     return spmv_ell_stream(ell.vals, ell.pattern.stream_plans()(block_n), x, nbuf=nbuf)
 
 
-def ell_residual_stream(ell, u, f, *, block_n: int = BLOCK_N, nbuf: int = N_BUFFERS):
+def ell_residual_stream(ell, u, f, *, block_n: int = BLOCK_N, nbuf: int | None = None):
     """Fused streaming residual ``r = K·u − f`` on an ELL operator."""
     return galerkin_residual_ell_stream(ell.vals, ell.pattern.stream_plans()(block_n), u, f,
                                         nbuf=nbuf)

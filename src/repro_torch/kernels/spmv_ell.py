@@ -13,11 +13,37 @@ builds it so); the kernels rely on that and do not test slots.
 * :func:`spmv_ell_stream` / :func:`galerkin_residual_ell_stream` — the
   **streaming** plan: a :class:`StreamPlan` (host precompute on the static
   column table) rebases the columns of each ``block_n``-row block into the
-  block's x-window ``[start_b, start_b + W)``.  On the card each block
-  stages its window in shared memory and streams its ``vals``/``cols``
-  tiles through an ``nbuf``-deep ``cp.async`` pipeline; the footprint
-  (:func:`stream_smem_bytes`) does not depend on N and is checked against
-  the card's opt-in shared-memory limit before launch.
+  block's x-window ``[start_b, start_b + W)``.
+
+The streaming kernel replaces the TPU kernel's sequential walk over the row
+blocks with a persistent CTA per SM that walks a run of ``TILE_ROWS``-row
+tiles in order.  What bounds it is memory (vals and cols are read once);
+what the design does about it:
+
+1. *No wave tail*: one CTA per SM (as many as fit), the tiles balanced over
+   the CTAs within one tile (:func:`stream_runs`); a run may start or end
+   inside a plan block.
+2. *The window load is hidden*: each CTA keeps x in a ring of
+   ``plan.ring`` elements of shared memory (R ≥ W plus the plan's largest
+   forward step of ``starts``, up to W), and moving on to the next block
+   copies only ``x[load_lo[b], start_b + W)``, issued while the previous
+   block's last tiles are still summed.  Where ``starts`` goes down or
+   jumps further than the ring allows (``load_lo[b] < 0``), and at the
+   start of a run, it waits for the previous block and loads the whole
+   window.
+3. *A deep, cheap pipeline*: one producer warp feeds an ``nbuf``-stage ring
+   of ``TILE_ROWS``-row vals/cols/f tiles with bulk copies (the 1-D TMA
+   copy, one per lane), each fill one mbarrier arrival, each hand-back a
+   named barrier; the unaligned ends of a copy go word by word.  The
+   default depth is the deepest up to :data:`N_BUFFERS` that fits
+   (:meth:`StreamPlan.depth`).
+4. *Fewer re-read windows*: x is copied about once per CTA run instead of
+   once per block, and never past N.
+
+The schedule (``plan.ring``, ``plan.load_lo``, the CTA runs) is host-side
+numpy, staged on a device once with the plan; the footprint
+(:func:`stream_smem_bytes`: ring + stages + barriers) does not depend on N
+and is checked against the card's opt-in shared-memory limit before launch.
 """
 
 from __future__ import annotations
@@ -44,16 +70,16 @@ __all__ = [
     "spmv_ell_stream",
     "galerkin_residual_ell_stream",
     "stream_smem_bytes",
+    "stream_runs",
     "check_stream_fits",
     "autotune_stream",
 ]
 
-# streaming defaults: 269 blocks of 1024 rows at the 3D main path, about two
-# waves on the 132 SMs (see the header of csrc/spmv_ell_stream.cu)
-BLOCK_N = 1024
-N_BUFFERS = 2
-MAX_BUFFERS = 4         # pipeline depths the kernel's cp.async waits cover
-TILE_ROWS = 128         # rows per pipelined vals/cols/f tile (kTileRows in the .cu)
+# streaming defaults (see the header of csrc/spmv_ell_stream.cu)
+BLOCK_N = 1024          # the plan's window granularity
+N_BUFFERS = 4           # default stage depth, or the deepest that fits below it
+MAX_BUFFERS = 8         # kMaxBuffers in the .cu
+TILE_ROWS = 128         # rows per vals/cols/f stage (kTileRows in the .cu)
 _LANE = 128             # window length granularity (the JAX plan's, kept for equal plans)
 
 
@@ -112,7 +138,14 @@ class StreamPlan:
     window starts ``starts`` (n_blocks,) int32, the uniform window width
     ``window`` (W, a multiple of 128), ``n_pad`` and ``x_len`` (the length x
     is zero-padded to on the TPU).  The arrays equal the JAX
-    ``_StreamPlan``'s; :meth:`staged` mirrors them to a device once."""
+    ``_StreamPlan``'s; :meth:`staged` mirrors them to a device once.
+
+    The CUDA kernel's schedule on top: ``ring`` (R, the x-ring's length:
+    W plus the largest forward step of ``starts``, capped at W, rounded up
+    to 128) and ``load_lo`` (n_blocks,) int32: where block b follows b − 1
+    in a CTA's run, the ring slides and the kernel copies
+    ``x[load_lo[b], starts[b] + W)``; ``load_lo[b] = -1`` (``starts`` goes
+    down, or steps further than R − W) makes it reload the whole window."""
 
     def __init__(self, cols: np.ndarray, block_n: int):
         cols = np.asarray(cols)
@@ -141,25 +174,74 @@ class StreamPlan:
         self.x_len = int(max(n, (self.starts.astype(np.int64) + self.window).max()
                              if n_blocks else n))
         self.block_n, self.n_rows, self.width = block_n, n, l
-        self._staged: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+        starts64 = self.starts.astype(np.int64)
+        steps = np.diff(starts64)
+        slide = min(max(int(steps.max(initial=0)), 0), self.window)
+        self.ring = self.window + -(-slide // _LANE) * _LANE
+        load_lo = np.full(n_blocks, -1, dtype=np.int64)
+        slides = (steps >= 0) & (steps <= self.ring - self.window)
+        load_lo[1:][slides] = np.maximum(starts64[:-1] + self.window, starts64[1:])[slides]
+        self.load_lo = load_lo.astype(np.int32)
+
+        self._staged: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+        self._runs: dict[tuple, tuple[torch.Tensor, int]] = {}
         telemetry.gauge_set("ell_stream_window", self.window, block_n=block_n)
 
     @property
     def n_blocks(self) -> int:
         return self.n_pad // self.block_n
 
-    def staged(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(cols_local, starts)`` on ``device``, uploaded once."""
+    @property
+    def tiles_per_block(self) -> int:
+        return -(-self.block_n // TILE_ROWS)
+
+    @property
+    def n_tiles(self) -> int:
+        """Tiles of at most ``TILE_ROWS`` rows, none straddling a block."""
+        if self.n_rows == 0:
+            return 0
+        last = self.n_rows - (self.n_blocks - 1) * self.block_n
+        return (self.n_blocks - 1) * self.tiles_per_block + -(-last // TILE_ROWS)
+
+    def _upload(self, device) -> tuple[torch.Tensor, ...]:
         device = torch.device(device)
         hit = self._staged.get(device)
         if hit is None:
-            hit = self._staged[device] = (torch.from_numpy(self.cols_local).to(device),
-                                          torch.from_numpy(self.starts).to(device))
+            hit = self._staged[device] = tuple(
+                torch.from_numpy(a).to(device) for a in (self.cols_local, self.starts,
+                                                         self.load_lo))
         return hit
 
+    def staged(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(cols_local, starts)`` on ``device``, uploaded once."""
+        return self._upload(device)[:2]
+
+    def schedule(self, device, nbuf: int, itemsize: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """``(load_lo, runs, n_ctas)`` of a launch on the CUDA ``device`` at
+        depth ``nbuf``: one CTA for each that fits the card's SMs (at most
+        one per tile) and its run of tiles; built and uploaded once."""
+        device = torch.device(device)
+        key = (device, nbuf, itemsize)
+        hit = self._runs.get(key)
+        if hit is None:
+            n_ctas = min(self.n_tiles, _cta_slots(device, self.width,
+                                                  self.smem_bytes(nbuf, itemsize), itemsize))
+            runs = torch.from_numpy(stream_runs(self.n_tiles, n_ctas)).to(device)
+            hit = self._runs[key] = (runs, n_ctas)
+        return (self._upload(device)[2], *hit)
+
     def smem_bytes(self, nbuf: int, itemsize: int) -> int:
-        return stream_smem_bytes(self.width, block_n=self.block_n, nbuf=nbuf,
-                                 window=self.window, itemsize=itemsize)
+        return stream_smem_bytes(self.width, self.ring, nbuf=nbuf, itemsize=itemsize)
+
+    def depth(self, itemsize: int, limit: int) -> int:
+        """The default stage depth: :data:`N_BUFFERS`, or the deepest below
+        it whose footprint fits ``limit`` bytes (1 if none does, which
+        :func:`check_stream_fits` then refuses)."""
+        nbuf = N_BUFFERS
+        while nbuf > 1 and self.smem_bytes(nbuf, itemsize) > limit:
+            nbuf -= 1
+        return nbuf
 
 
 class StreamPlans:
@@ -179,13 +261,21 @@ class StreamPlans:
         return plan
 
 
-def stream_smem_bytes(l: int, *, block_n: int = BLOCK_N, nbuf: int = N_BUFFERS,
-                      window: int | None = None, itemsize: int = 8) -> int:
-    """Shared memory one CUDA block of the streaming kernel takes
-    (independent of N): the x-window, single-buffered, plus ``nbuf`` tiles
-    of ``min(TILE_ROWS, block_n)`` rows of vals, int32 cols and f."""
-    w = window if window is not None else block_n + _LANE
-    return w * itemsize + nbuf * min(TILE_ROWS, block_n) * (l * (itemsize + 4) + itemsize)
+def stream_smem_bytes(l: int, ring: int, *, nbuf: int = N_BUFFERS, itemsize: int = 8) -> int:
+    """Dynamic shared memory of one CTA of the streaming kernel
+    (independent of N): the x-ring of ``ring`` elements, ``nbuf`` stages of
+    ``TILE_ROWS`` rows of vals, int32 cols and f (each with 16 bytes of
+    room to land at its source's address modulo 16), and the mbarriers
+    (one per stage, two window and two block-done barriers)."""
+    stage = TILE_ROWS * l * (itemsize + 4) + TILE_ROWS * itemsize + 3 * 16
+    return ring * itemsize + nbuf * stage + 8 * (nbuf + 4)
+
+
+def stream_runs(n_tiles: int, n_ctas: int) -> np.ndarray:
+    """(n_ctas + 1,) int32: CTA c walks tiles ``runs[c] .. runs[c + 1]``;
+    the runs differ by at most one tile."""
+    c = np.arange(n_ctas + 1, dtype=np.int64)
+    return (c * n_tiles // max(n_ctas, 1)).astype(np.int32)
 
 
 def check_stream_fits(plan: StreamPlan, nbuf: int, itemsize: int, limit: int) -> int:
@@ -195,14 +285,26 @@ def check_stream_fits(plan: StreamPlan, nbuf: int, itemsize: int, limit: int) ->
     if need > limit:
         raise ValueError(
             f"streaming SpMV plan does not fit: W={plan.window}, block_n={plan.block_n}, "
-            f"nbuf={nbuf}, L={plan.width}, itemsize={itemsize} need {need} bytes of shared "
-            f"memory per block, the card allows {limit}; use a smaller block_n or nbuf"
+            f"nbuf={nbuf}, L={plan.width}, itemsize={itemsize}, ring R={plan.ring} need "
+            f"{need} bytes of shared memory per block, the card allows {limit}; use a "
+            f"smaller block_n or nbuf"
         )
     return need
 
 
 def _smem_limit(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def _cta_slots(device: torch.device, width: int, smem: int, itemsize: int) -> int:
+    """CTAs of the streaming kernel the card holds at once: SMs × the
+    occupancy API's CTAs per SM at this footprint."""
+    per_sm = _cuda.query("spmv_ell_stream", f"tg_stream_ctas_per_sm_f{8 * itemsize}", device,
+                         width, smem)
+    if per_sm < 1:
+        raise ValueError(f"the streaming kernel does not fit an SM at {smem} bytes of shared "
+                         "memory")
+    return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
 
 
 def _as_plan(cols, block_n: int | None, n: int) -> StreamPlan:
@@ -223,8 +325,9 @@ def _as_plan(cols, block_n: int | None, n: int) -> StreamPlan:
 def _stream(name, base, vals, cols, vecs, block_n, nbuf, ref):
     """Shared body of the two streaming wrappers (``name`` is also the
     launch counter): ``vecs`` is ``{"x": x}`` or ``{"u": u, "f": f}``."""
-    if not isinstance(nbuf, int) or not 1 <= nbuf <= MAX_BUFFERS:
-        raise ValueError(f"{name}: nbuf must be an int in [1, {MAX_BUFFERS}], got {nbuf!r}")
+    if nbuf is not None and (not isinstance(nbuf, int) or not 1 <= nbuf <= MAX_BUFFERS):
+        raise ValueError(f"{name}: nbuf must be None or an int in [1, {MAX_BUFFERS}], "
+                         f"got {nbuf!r}")
     if vals.dim() != 2:
         raise ValueError(f"{name}: vals must be (N, L), got {tuple(vals.shape)}")
     n, width = vals.shape
@@ -237,20 +340,27 @@ def _stream(name, base, vals, cols, vecs, block_n, nbuf, ref):
     if all(t.device.type == "cpu" for t in (vals, *vecs.values())):
         return ref(vals, *plan.staged("cpu"), *vecs.values(), plan.block_n, plan.x_len)
     dtype = _cuda.check_operands(name, {"vals": vals, **vecs})
-    check_stream_fits(plan, nbuf, vals.element_size(), _smem_limit(vals.device))
-    cols_local, starts = plan.staged(vals.device)
+    itemsize = vals.element_size()
+    limit = _smem_limit(vals.device)
+    if nbuf is None:
+        nbuf = plan.depth(itemsize, limit)
+    smem = check_stream_fits(plan, nbuf, itemsize, limit)
     y = torch.empty(n, dtype=dtype, device=vals.device)
     if n:
+        cols_local, starts = plan.staged(vals.device)
+        load_lo, runs, n_ctas = plan.schedule(vals.device, nbuf, itemsize)
         _cuda.launch(name, "spmv_ell_stream", _cuda.symbol(base, dtype), vals, cols_local,
-                     starts, *vecs.values(), y, n, width, plan.block_n, plan.window, nbuf)
+                     starts, load_lo, runs, *vecs.values(), y, n, width, plan.block_n,
+                     plan.window, plan.ring, nbuf, n_ctas, smem)
     return y
 
 
 def spmv_ell_stream(vals: torch.Tensor, cols, x: torch.Tensor, *, block_n: int | None = None,
-                    nbuf: int = N_BUFFERS) -> torch.Tensor:
+                    nbuf: int | None = None) -> torch.Tensor:
     """Streaming SpMV: vals (N, L), x (N,) → y (N,).  ``cols`` is a
     :class:`StreamPlan` or the host (N, L) column table (a plan is then
-    built for this call at ``block_n``, default :data:`BLOCK_N`).
+    built for this call at ``block_n``, default :data:`BLOCK_N`).  ``nbuf``
+    is the stage depth, by default :meth:`StreamPlan.depth`.
 
     CPU tensors take the plain version, which walks the plan; CUDA tensors
     launch the kernel, after checking that the plan fits shared memory."""
@@ -260,7 +370,7 @@ def spmv_ell_stream(vals: torch.Tensor, cols, x: torch.Tensor, *, block_n: int |
 
 def galerkin_residual_ell_stream(vals: torch.Tensor, cols, u: torch.Tensor, f: torch.Tensor,
                                  *, block_n: int | None = None,
-                                 nbuf: int = N_BUFFERS) -> torch.Tensor:
+                                 nbuf: int | None = None) -> torch.Tensor:
     """Fused streaming residual r = K·u − f (see :func:`spmv_ell_stream`)."""
     return _stream("galerkin_residual_ell_stream", "tg_residual_ell_stream", vals, cols,
                    {"u": u, "f": f}, block_n, nbuf, galerkin_residual_ell_stream_ref)
@@ -271,7 +381,7 @@ def galerkin_residual_ell_stream(vals: torch.Tensor, cols, u: torch.Tensor, f: t
 # ---------------------------------------------------------------------------
 
 def autotune_stream(vals: torch.Tensor, cols, x: torch.Tensor, *,
-                    block_candidates=(1024, 4096, 8192), nbuf_candidates=(2, 3),
+                    block_candidates=(1024, 4096, 8192), nbuf_candidates=(2, 4, 8),
                     iters: int = 3) -> tuple[int, int]:
     """Time :func:`spmv_ell_stream` over ``block_n × nbuf`` candidates and
     return the fastest pair.  ``cols`` is a :class:`StreamPlans` (the plans

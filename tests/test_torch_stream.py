@@ -1,8 +1,13 @@
 """Torch port parity for the streaming ELL SpMV (B5) and fused residual
 (B6): the plan against the JAX ``_StreamPlan``, the plain versions against
-the Pallas kernels (interpret mode), the shared-memory footprint and
-feasibility check, the autotune hook, the ``ell_stream`` solve, and, on a
-CUDA machine, each CUDA kernel against its plain version."""
+the Pallas kernels (interpret mode), a numpy replay of the CUDA kernel's
+schedule (CTA runs, x-ring, window slides and reloads), the shared-memory
+footprint and feasibility check, the autotune hook, the ``ell_stream``
+solve, and, on a CUDA machine, each CUDA kernel against its plain
+version."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,9 +37,11 @@ from repro_torch.kernels import (  # noqa: E402
     ell_residual_stream,
     galerkin_residual_ell_stream,
     spmv_ell_stream,
+    stream_runs,
     stream_smem_bytes,
 )
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.spmv_ell import MAX_BUFFERS, N_BUFFERS, TILE_ROWS  # noqa: E402
 
 # the JAX package's streaming sweep (tests/test_kernels.py): N ragged against
 # block_n, L = 1, N < block_n, an exact multiple, one block plus one row
@@ -132,17 +139,140 @@ def test_plain_version_walks_the_plan():
 
 def test_stream_smem_bytes_independent_of_n():
     """The footprint of a block does not scale with N: banded tables of 10k
-    and 200k rows give one window, hence one footprint."""
+    and 200k rows give one window and one ring, hence one footprint, which
+    is the kernel's layout: the ring, nbuf stages of TILE_ROWS rows of vals,
+    cols and f (16 bytes of landing room each), and nbuf + 4 mbarriers."""
     band = 300
     footprints = set()
     for n in (10_000, 200_000):
         rows = np.arange(n)[:, None]
         cols = np.clip(rows + np.array([-band, -1, 0, 1, band]), 0, n - 1).astype(np.int32)
         plan = StreamPlan(cols, 1024)
-        footprints.add((plan.window, plan.smem_bytes(2, 8)))
+        footprints.add((plan.window, plan.ring, plan.smem_bytes(2, 8)))
     assert len(footprints) == 1
-    assert stream_smem_bytes(7, block_n=1024, nbuf=2, window=2048) == \
-        2048 * 8 + 2 * 128 * (7 * 12 + 8)
+    (window, ring, _), = footprints
+    assert ring == window + 1024  # the band advances block_n columns a block
+    for nbuf, itemsize in ((2, 8), (5, 4)):
+        stage = (128 * 7 * itemsize + 16) + (128 * 7 * 4 + 16) + (128 * itemsize + 16)
+        assert stream_smem_bytes(7, 2048, nbuf=nbuf, itemsize=itemsize) == \
+            2048 * itemsize + nbuf * stage + 8 * (nbuf + 4)
+
+
+def test_stream_constants_match_the_kernel():
+    """The tile rows and the deepest ring the footprint formula assumes are
+    the ones the CUDA source allocates and accepts."""
+    src = (Path(kernels.__file__).parent / "csrc" / "spmv_ell_stream.cu").read_text()
+    assert int(re.search(r"kTileRows = (\d+);", src).group(1)) == TILE_ROWS == 128
+    assert int(re.search(r"kMaxBuffers = (\d+);", src).group(1)) == MAX_BUFFERS
+    need = re.search(r"size_t smem_need\(.*?\n}", src, re.S).group(0)
+    assert "(item + sizeof(int))" in need and "kTileRows * item + 48" in need
+    assert "8 * (nbuf + 4)" in need
+
+
+@pytest.mark.parametrize("n_tiles,n_ctas", [(1, 1), (7, 7), (4291, 132), (14261, 132),
+                                            (1250, 396), (100, 3)])
+def test_stream_runs_balanced(n_tiles, n_ctas):
+    """CTA runs cover the tiles in order, each once, and differ by at most
+    one tile (no wave tail)."""
+    runs = stream_runs(n_tiles, n_ctas)
+    assert runs.dtype == np.int32 and runs.shape == (n_ctas + 1,)
+    assert runs[0] == 0 and runs[-1] == n_tiles
+    sizes = np.diff(runs)
+    assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+
+
+def _band_cols(n, centre, half=40):
+    offs = np.array([-3, -1, 0, 1, 2, half // 2, half])
+    return np.clip(centre[:, None] + offs[None, :], 0, n - 1).astype(np.int32)
+
+
+def _schedule_plan(kind):
+    """(plan, check of the path it takes) for each replay input."""
+    if kind == "decreasing":  # a band's rows in reverse: starts go down
+        r = np.arange(3000)
+        return StreamPlan(_band_cols(3000, 2999 - r), 256), lambda p: (p.load_lo[1:] < 0).all()
+    if kind == "past_ring":  # a slow band that jumps 3N/4 ahead half way
+        r = np.arange(3000)
+        centre = np.where(r < 1536, r // 4, 3000 - (3000 - r) // 4)
+        plan = StreamPlan(_band_cols(3000, centre), 256)
+        return plan, lambda p: (p.load_lo[1:] < 0).sum() == 1 and (p.load_lo[1:] >= 0).sum() > 1
+    if kind[0] == "fem":
+        _, cols = _fem_cols(getattr(tc, kind[1]), kind[2])
+        return StreamPlan(cols, kind[3]), lambda p: True
+    n, l, block_n = kind
+    return StreamPlan(_sweep_inputs(n, l, n + l)[1], block_n), lambda p: True
+
+
+def _replay(plan, n_ctas, x, shift):
+    """The CUDA kernel's walk in numpy: per CTA run, a ring of plan.ring
+    slots (position p in slot (p + shift) % R), whole-window loads at the
+    start of a run and where load_lo < 0, slides otherwise, each copy
+    stopping at N; returns the x value each (row, slot) gathers, and checks
+    that a slide never writes a slot the previous block still reads and
+    that every row is summed once."""
+    n, width, bn, w, ring_len = plan.n_rows, plan.width, plan.block_n, plan.window, plan.ring
+    tpb = plan.tiles_per_block
+    runs = stream_runs(plan.n_tiles, n_ctas)
+    got = np.full((n, width), np.nan)
+    summed = np.zeros(n, dtype=np.int64)
+    for c in range(n_ctas):
+        ring = np.full(ring_len, np.nan)
+        held = np.full(ring_len, -1, dtype=np.int64)  # position in each slot
+        prev = None
+        for k in range(runs[c], runs[c + 1]):
+            b, j = divmod(k, tpb)
+            row0 = b * bn + j * TILE_ROWS
+            rows = min(TILE_ROWS, bn - j * TILE_ROWS, n - row0)
+            if b != prev:
+                start = int(plan.starts[b])
+                slide = prev is not None and plan.load_lo[b] >= 0
+                if slide:
+                    assert b == prev + 1
+                lo = int(plan.load_lo[b]) if slide else start
+                pos = np.arange(lo, min(start + w, n))
+                slots = (pos + shift) % ring_len
+                assert len(pos) <= ring_len
+                if slide:
+                    live = (np.arange(plan.starts[prev], plan.starts[prev] + w) + shift) % ring_len
+                    assert not np.isin(slots, live).any()
+                ring[slots] = x[pos]
+                held[slots] = pos
+                base, prev = (start + shift) % ring_len, b
+            local = plan.cols_local[row0:row0 + rows].astype(np.int64)
+            slot = base + local
+            slot = np.where(slot >= ring_len, slot - ring_len, slot)
+            np.testing.assert_array_equal(held[slot], start + local)
+            got[row0:row0 + rows] = ring[slot]
+            summed[row0:row0 + rows] += 1
+    np.testing.assert_array_equal(summed, 1)
+    return got
+
+
+REPLAY_PLANS = SWEEP + [("fem", "unit_square_tri", 15, 128), ("fem", "unit_square_tri", 15, 256),
+                        ("fem", "unit_cube_tet", 4, 128), ("fem", "unit_cube_tet", 4, 256),
+                        "decreasing", "past_ring"]
+
+
+@pytest.mark.parametrize("kind", REPLAY_PLANS, ids=str)
+@pytest.mark.parametrize("n_ctas", [1, 5, 132])
+def test_stream_schedule_replay_gathers_the_plain_values(kind, n_ctas):
+    """Every gather of the kernel's schedule reads the x value that
+    spmv_ell_stream_ref gathers, whatever the CTA count and x's alignment."""
+    plan, takes_path = _schedule_plan(kind)
+    assert takes_path(plan)
+    assert plan.ring >= plan.window and plan.ring % 128 == 0
+    x = np.random.default_rng(plan.n_rows).normal(size=plan.n_rows)
+    n_ctas = min(n_ctas, plan.n_tiles)
+    x_pad = np.concatenate([x, np.zeros(plan.x_len - plan.n_rows)])
+    row_start = np.repeat(plan.starts.astype(np.int64), plan.block_n)[:plan.n_rows, None]
+    want = x_pad[row_start + plan.cols_local[:plan.n_rows]]
+    for shift in (0, 1, 3):
+        np.testing.assert_array_equal(_replay(plan, n_ctas, x, shift), want)
+    vals = np.random.default_rng(1).normal(size=want.shape)
+    ref = tref.spmv_ell_stream_ref(torch.as_tensor(vals), *plan.staged("cpu"),
+                                   torch.as_tensor(x), plan.block_n, plan.x_len)
+    np.testing.assert_allclose((vals * want).sum(1), ref.numpy(), rtol=0, atol=1e-12)
+
 
 
 def test_infeasible_plan_raises_before_launch():
@@ -156,12 +286,18 @@ def test_infeasible_plan_raises_before_launch():
     with pytest.raises(ValueError, match=r"W=\d+, block_n=1024, nbuf=2.*allows 232448"):
         check_stream_fits(plan, 2, 8, H100_SMEM_OPTIN)
     assert check_stream_fits(plan, 1, 4, H100_SMEM_OPTIN) == plan.smem_bytes(1, 4)
+    # the default depth is the deepest up to N_BUFFERS that fits, down to 1
+    # (which then raises)
+    assert plan.depth(4, H100_SMEM_OPTIN) == N_BUFFERS
+    assert plan.depth(8, H100_SMEM_OPTIN) == 1
+    limit = plan.smem_bytes(2, 4)
+    assert plan.depth(4, limit) == 2 and plan.depth(4, limit - 1) == 1
 
 
 def test_stream_wrappers_reject_bad_operands():
     vals, cols, x, f = _sweep_inputs(50, 3, 0)
     tv, tx = torch.as_tensor(vals), torch.as_tensor(x)
-    for nbuf in (0, 5, 2.0):
+    for nbuf in (0, MAX_BUFFERS + 1, 2.0):
         with pytest.raises(ValueError, match="nbuf"):
             spmv_ell_stream(tv, cols, tx, nbuf=nbuf)
     with pytest.raises(ValueError):
