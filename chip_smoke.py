@@ -2,15 +2,19 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, on a CUDA machine
+    python3 chip_smoke.py --only host_cost,ell_timing,gradients --src DIR
+                                   # those phases alone, on DIR/src/repro_torch
 
 Phases, one JSON line each:
 
 1. device — the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, and the time to build the CUDA kernels from ``src/`` with nvcc;
-   then, on a line of its own, ``ptxas -v``'s registers, static shared
-   memory and spills for each kernel of ``spmv_ell_stream.cu``;
+   then, on a line each, ``ptxas -v``'s registers, static shared memory and
+   spills for each kernel of ``spmv_ell.cu`` and ``spmv_ell_stream.cu``;
 2. kernels_small — every kernel against its plain PyTorch version on the
-   card at ragged shapes, float32 and float64 (the streaming kernels at the
+   card at ragged shapes, float32 and float64 (B3/B4 at widths 1-40 with N
+   not a multiple of 32 and operands one element off 16-byte alignment;
+   the streaming kernels at the
    JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
    each path of the kernel's schedule at every depth the wrapper accepts:
    decreasing window starts, a step past the ring, odd window starts with
@@ -38,21 +42,36 @@ Phases, one JSON line each:
    solved with ``backend="ell_stream"`` (B5 in CG, B6 for the residual)
    against ``backend="ell"``, with the streaming plan near its
    shared-memory limit;
-8. kernels_main — each kernel at the shapes of the main path (B5/B6 at the
-   n = 64 θ-method operator and the n = 96 stiffness): error against its
-   plain version, median device time over 25 launches, the plain
-   version's and one PyTorch library call's time, and the bound (B5/B6
-   also with their CTAs, x-ring length, shared memory and bytes moved);
+8. kernels_main — each kernel at the shapes of the main path (B3/B4 at the
+   n = 64 and n = 96 stiffness, B5/B6 at the n = 64 θ-method operator and
+   the n = 96 stiffness): error against its plain version, median device
+   time over 25 launches, the plain version's and one PyTorch library
+   call's time, and the bound (B3/B4 also with their grid, rows per tile,
+   tiles in flight, shared memory and the bytes they request; B5/B6 with
+   their CTAs, x-ring length, shared memory and bytes moved);
 9. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
-   with BiCGSTAB.
+   with BiCGSTAB;
+10. gradients — at n = 64 the gradient of a Newmark rollout loss with
+   respect to u0 through ``backend="ell"`` and ``"ell_stream"`` against
+   ``backend="csr"`` (1e-8 relative), and ``torch.autograd.gradcheck`` of
+   B3-B6's autograd Functions in float64 at small N.
 
 Then the card's ``nvidia-smi`` line, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; with no CUDA device it exits 2 and prints no result.
+
+``--only`` runs the named phases alone, to hold a change against its
+parent on one card: ``gradients``, ``ell_timing`` (B3/B4 at the n = 64 and
+n = 96 stiffness, built for the phase) and ``host_cost`` (the ELL wrappers'
+host time per call and the n = 64 CG loop's wall time per iteration).
+``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (a checkout of
+another commit) instead.  Such a partial run ends with a ``partial_run``
+line, never with the full run's ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -66,7 +85,6 @@ import torch
 from torch.autograd import DeviceType
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 # The JAX package's numbers for PoissonProblem(unit_cube_tet(n)).solve(f=1.0,
 # tol=1e-10), measured on the CPU: n -> (DoFs, nnz, CG iterations, max u).
@@ -136,9 +154,10 @@ def ptxas_report(proc) -> list:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            t = re.search(r"([a-z_]+_kernel)I([fd])Li(\d+)E", name)
-            entry = {"kernel": f"{t.group(1)}<{'double' if t.group(2) == 'd' else 'float'},"
-                               f"{t.group(3)}>" if t else name}
+            t = re.search(r"([a-z_]+_kernel)I([fd])((?:Li\d+E)*)", name)
+            args = ["double" if t.group(2) == "d" else "float",
+                    *re.findall(r"Li(\d+)E", t.group(3))] if t else []
+            entry = {"kernel": f"{t.group(1)}<{','.join(args)}>" if t else name}
             rows.append(entry)
         elif entry is not None and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -286,6 +305,7 @@ def phase_kernels_small():
                           f"{name} N={n} L={width} block_n={block_n} nbuf={nbuf} {dtype}: {err}")
                     worst[name] = max(worst[name], err / scale)
                     cases += 1
+    cases += _ell_width_cases(worst)
     cases += _stream_schedule_cases(worst)
     # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
     cols = np.repeat(np.arange(40_000, dtype=np.int32)[:, None], 3, axis=1)
@@ -305,6 +325,47 @@ def phase_kernels_small():
           "tolerance": "max|err| <= tol * "
           "max(1, max|plain|), tol 2e-4 (float32) / 1e-12 (float64)",
           "worst_scaled_err": worst})
+
+
+# B3/B4 widths: one slot, the 2D and 3D P1 stencils, each side of a power
+# of two, the widest tile rows and past them (a warp per row)
+ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40)
+def _ell_width_cases(worst) -> int:
+    """B3/B4 against their plain versions at every width of ``ELL_WIDTHS``, N not a multiple of 32 (one tile and a ragged
+    one; many tiles), operands aligned or one element off 16 bytes."""
+    from repro_torch.kernels import galerkin_residual_ell, spmv_ell
+    from repro_torch.kernels.ref import galerkin_residual_ell_ref, spmv_ell_ref
+
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[dtype]
+        for width in ELL_WIDTHS:
+            for n in (45, 10_007):
+                for skip in (0, 1):
+                    rng = np.random.default_rng(n + width)
+
+                    def operand(size, dt=dtype, high=None):
+                        a = (rng.normal(size=size + skip) if high is None
+                             else rng.integers(0, high, size=size + skip))
+                        return torch.as_tensor(a, dtype=dt, device="cuda")[skip:]
+
+                    vals = operand(n * width).view(n, width)
+                    cols = operand(n * width, torch.int32, n).view(n, width)
+                    x, f = operand(n), operand(n)
+                    if skip:
+                        check(all(t.data_ptr() % 16 for t in (vals, cols, x)),
+                              f"B3 L={width}: the operands are 16-byte aligned")
+                    want = spmv_ell_ref(vals, cols, x)
+                    got = [("spmv_ell", spmv_ell(vals, cols, x), want),
+                           ("galerkin_residual_ell", galerkin_residual_ell(vals, cols, x, f),
+                            galerkin_residual_ell_ref(vals, cols, x, f))]
+                    for name, out, ref in got:
+                        err, scale = max_err(out, ref)
+                        check(err <= tol * scale,
+                              f"{name} N={n} L={width} skip={skip} {dtype}: {err}")
+                        worst[name] = max(worst[name], err / scale)
+                        cases += 1
+    return cases
 
 
 def _banded(rows, centre, half=40):
@@ -666,24 +727,162 @@ def phase_stream_solve():
     return k, launches
 
 
-def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
-    from repro_torch import telemetry
-    from repro_torch.core import csr_to_ell, unit_square_tri
-    from repro_torch.kernels import (autotune_ell_stream, galerkin_residual_ell,
-                                     galerkin_residual_ell_stream, local_stiffness_p1,
-                                     seg_reduce, spmv_ell, spmv_ell_stream)
-    from repro_torch.kernels.ref import (galerkin_residual_ell_ref,
-                                         galerkin_residual_ell_stream_ref,
-                                         local_stiffness_p1_ref, seg_reduce_ref, spmv_ell_ref,
-                                         spmv_ell_stream_ref)
-    from repro_torch.kernels.spmv_ell import BLOCK_N
+def ell_design(n: int, width: int) -> dict | None:
+    """B3/B4's launch at (N, L): grid, rows per warp tile, tiles in flight
+    per warp and dynamic shared memory per CTA; None for a library without
+    the query (an earlier commit's)."""
+    from repro_torch.kernels import _cuda
 
-    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if not hasattr(_cuda._library("spmv_ell"), "tg_ell_grid_f64"):
+        return None
+    if width > 32:
+        return {"kernel": "a warp per row (L > 32)",
+                "grid": _cuda.query("spmv_ell", "tg_ell_grid_f64", "cuda", n, width)}
+    return {"kernel": "32-row warp tiles, one bulk copy per array",
+            "grid": _cuda.query("spmv_ell", "tg_ell_grid_f64", "cuda", n, width),
+            "warps_per_cta": 4, "rows_per_tile": 32, "tiles_in_flight": 1,
+            "smem_bytes_per_cta": _cuda.query("spmv_ell", "tg_ell_smem_f64", "cuda", width)}
 
+
+def ell_rows(ops: dict, bound, rng) -> dict:
+    """B3/B4 on each CSR operator of ``ops`` (label -> CSR, the first the
+    main row): error against the plain version, times, bound and design
+    figures.  ``requested_bytes`` counts what the kernel asks of the memory
+    system: vals and cols staged once, one x element gathered per slot
+    (from L2 or HBM: which was not measured), y [and f] once."""
+    from repro_torch.core import csr_to_ell
+    from repro_torch.kernels import galerkin_residual_ell, spmv_ell
+    from repro_torch.kernels.ref import galerkin_residual_ell_ref, spmv_ell_ref
+
+    out = {}
+    for label, op in ops.items():
+        ell = csr_to_ell(op)
+        n, width = ell.vals.shape
+        x = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
+        f = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
+        a_lib = torch.sparse_csr_tensor(torch.as_tensor(op.indptr, device="cuda"),
+                                        torch.as_tensor(op.indices, device="cuda"), op.vals,
+                                        size=op.shape)
+        design = ell_design(n, width)
+        for name, fn, ref, lib, extra in (
+            ("spmv_ell", lambda: spmv_ell(ell.vals, ell.cols_dev, x),
+             lambda: spmv_ell_ref(ell.vals, ell.cols_dev, x), lambda: a_lib @ x, 0),
+            ("galerkin_residual_ell", lambda: galerkin_residual_ell(ell.vals, ell.cols_dev, x, f),
+             lambda: galerkin_residual_ell_ref(ell.vals, ell.cols_dev, x, f),
+             lambda: torch.addmv(f, a_lib, x, beta=-1.0), 1),
+        ):
+            err, scale = max_err(fn(), ref())
+            check(err <= 1e-12 * scale, f"{name} {label}: {err}")
+            err_lib, _ = max_err(lib(), ref())
+            check(err_lib <= 1e-12 * scale, f"{name} {label}: library call disagrees: {err_lib}")
+            # the bound: vals, cols, x, y [, f] once each
+            nbytes = 12 * n * width + 8 * n * (2 + extra)
+            b_ms, b_by = bound(nbytes, 2 * op.nnz + extra * n)
+            row = {"shape": f"N={n} L={width} nnz={op.nnz}", "max_abs_err": err,
+                   "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(ref),
+                   "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "requested_bytes": nbytes - 8 * n + 8 * n * width,
+                   "design": design}
+            out.setdefault(name, {})[label] = row
+    first = next(iter(ops))
+    return {name: {**by_label[first], **{lab: r for lab, r in by_label.items() if lab != first}}
+            for name, by_label in out.items()}
+
+
+def wrapper_host_us(calls: int = 500, reps: int = 11) -> dict:
+    """Host time of one B3/B4 wrapper call, µs: the median over ``reps`` of
+    ``calls`` calls on the n = 8 stiffness (729 rows, a few µs of device
+    work, so the loop waits on the host), synchronised at the end."""
+    from repro_torch.core import csr_to_ell, unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.kernels import galerkin_residual_ell, spmv_ell
+
+    ell = csr_to_ell(PoissonProblem(unit_cube_tet(8), device="cuda").assemble(f=1.0)[0])
+    x = torch.ones(ell.vals.shape[0], dtype=torch.float64, device="cuda")
+    out = {}
+    for name, fn in (("spmv_ell", lambda: spmv_ell(ell.vals, ell.cols_dev, x)),
+                     ("galerkin_residual_ell",
+                      lambda: galerkin_residual_ell(ell.vals, ell.cols_dev, x, x))):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            runs.append(1e6 * (time.perf_counter() - t0) / calls)
+        out[name] = statistics.median(runs)
+    return out
+
+
+def phase_ell_timing(bw, fp64):
+    """B3/B4 alone at the n = 64 and n = 96 stiffness (``--only``): the
+    rows of ``kernels_main`` and the wrappers' host time per call, for
+    holding a change against its parent."""
+    from repro_torch.core import unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+
+    ops = {f"n{n}": PoissonProblem(unit_cube_tet(n), device="cuda").assemble(f=1.0)[0]
+           for n in (MAIN_N, STREAM_N)}
+    rows = ell_rows(ops, bounder(bw, fp64), np.random.default_rng(7))
+    emit({"phase": "ell_timing", "rows": rows, "host_us_per_call": wrapper_host_us()})
+    return rows
+
+
+def phase_host_cost(reps: int = 7):
+    """The host cost of the ELL path (``--only``): the B3/B4 wrappers' host
+    µs per call, and the n = 64 CG loop on ``ell`` and ``ell_stream``: wall
+    µs per iteration over ``reps`` runs (host-bound, so this reads the
+    wrappers and the loop), then one run under torch.profiler as in phase
+    ``profile``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import cg, make_matvec, make_preconditioner, unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+
+    k, load = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda").assemble(f=1.0)
+    m = make_preconditioner(k, "jacobi")
+    out = {"phase": "host_cost", "host_us_per_call": wrapper_host_us()}
+    for backend in ("ell", "ell_stream"):
+        matvec = make_matvec(k, backend)
+        cg(matvec, load, m=m)  # builds the ELL layout or the streaming plan
+        runs = []
+        for _ in range(reps):
+            (_, info), loop_s = timed(lambda: cg(matvec, load, m=m))
+            runs.append(1e6 * loop_s / info.iters)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (_, info), loop_s = timed(lambda: cg(matvec, load, m=m))
+        busy_ms, _ = _device_time(prof)
+        out[backend] = {"iters": info.iters, "wall_us_per_iter": statistics.median(runs),
+                        "wall_us_per_iter_runs": runs,
+                        "profiled_wall_us_per_iter": 1e6 * loop_s / info.iters,
+                        "profiled_device_us_per_iter": 1e3 * busy_ms / info.iters}
+    emit(out)
+    return out
+
+
+def bounder(bw, fp64):
+    """bound(bytes, flops) -> (ms, "bytes" | "operations") on this card."""
     def bound(nbytes, flops):
         t_bytes, t_ops = nbytes / bw, flops / fp64
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    return bound
+
+
+def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
+    from repro_torch import telemetry
+    from repro_torch.core import csr_to_ell, unit_square_tri
+    from repro_torch.kernels import (autotune_ell_stream, galerkin_residual_ell_stream,
+                                     local_stiffness_p1, seg_reduce, spmv_ell, spmv_ell_stream)
+    from repro_torch.kernels.ref import (galerkin_residual_ell_stream_ref,
+                                         local_stiffness_p1_ref, seg_reduce_ref,
+                                         spmv_ell_stream_ref)
+    from repro_torch.kernels.spmv_ell import BLOCK_N
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    bound = bounder(bw, fp64)
     rng = np.random.default_rng(7)
     rows = {}
 
@@ -726,31 +925,10 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
                                                   device="cuda").index_add_(0, seg, src)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
-    # B3 / B4 on the main path's condensed operator
-    ell = csr_to_ell(k)
-    n, width = ell.vals.shape
-    x = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
-    f = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
-    a_lib = torch.sparse_csr_tensor(torch.as_tensor(k.indptr, device="cuda"),
-                                    torch.as_tensor(k.indices, device="cuda"), k.vals,
-                                    size=k.shape)
-    for name, fn, ref, lib, extra in (
-        ("spmv_ell", lambda: spmv_ell(ell.vals, ell.cols_dev, x),
-         lambda: spmv_ell_ref(ell.vals, ell.cols_dev, x), lambda: a_lib @ x, 0),
-        ("galerkin_residual_ell", lambda: galerkin_residual_ell(ell.vals, ell.cols_dev, x, f),
-         lambda: galerkin_residual_ell_ref(ell.vals, ell.cols_dev, x, f),
-         lambda: torch.addmv(f, a_lib, x, beta=-1.0), 1),
-    ):
-        err, scale = max_err(fn(), ref())
-        check(err <= 1e-12 * scale, f"{name}: {err}")
-        err_lib, _ = max_err(lib(), ref())
-        check(err_lib <= 1e-12 * scale, f"{name}: library call disagrees: {err_lib}")
-        nbytes = 12 * n * width + 8 * n * (2 + extra)
-        b_ms, b_by = bound(nbytes, 2 * k.nnz + extra * n)
-        rows[name] = {"shape": f"N={n} L={width} nnz={k.nnz}", "max_abs_err": err,
-                      "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(ref),
-                      "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
-                      "bytes": nbytes}
+    # B3 / B4 on the main path's condensed operator and the n = 96 stiffness
+    rows.update(ell_rows({"n64": k, "n96": k_stream}, bound, rng))
+    for name, us in wrapper_host_us().items():
+        rows[name]["host_us_per_call"] = us
     # B5 / B6 at the n = 64 θ-method operator (M + θΔtK, condensed) and the
     # n = 96 stiffness; the bound is B3's (vals, cols, x, y [, f] once each);
     # moved_bytes counts x as the kernel copies it (x_loaded elements: each
@@ -829,30 +1007,129 @@ def phase_second_entry():
         check(launches[name] > 0, f"advection-diffusion: kernel {name} never launched")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 2
-    from repro_torch import kernels
+GRAD_STEPS = 5
 
+
+def phase_gradients():
+    """C1 on the card: the gradient of a Newmark rollout loss with respect
+    to u0 through the ELL kernels (B3 on ``ell``, B5 on ``ell_stream``, in
+    the stiffness applies K·u*) equals the ``csr`` rollout's to 1e-8
+    relative at n = 64; gradcheck of the four wrappers' autograd Functions
+    in float64 at small N.  The readings are emitted before the checks."""
+    from repro_torch import kernels
+    from repro_torch.core import SolverSpec, unit_cube_tet, weakform as wf
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.kernels import (StreamPlan, galerkin_residual_ell,
+                                     galerkin_residual_ell_stream, spmv_ell, spmv_ell_stream)
+    from repro_torch.transient import NewmarkIntegrator
+    from torch.autograd.gradcheck import GradcheckError
+
+    prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    m_op = prob.asm.assemble(wf.mass(1.0))
+    k_op = prob.asm.assemble(wf.diffusion(1.0))
+    pts = torch.as_tensor(prob.space.dof_points, dtype=torch.float64, device="cuda")
+    u0 = torch.sin(math.pi * pts).prod(dim=1) * prob.bc.free_mask
+    wts = torch.as_tensor(np.random.default_rng(3).normal(size=(GRAD_STEPS, u0.shape[0])),
+                          device="cuda")
+    spec = SolverSpec(method="cg", tol=1e-12, atol=1e-14)
+    grads, launches = {}, {}
+    for backend in ("csr", "ell", "ell_stream"):
+        nm = NewmarkIntegrator(m_op, k_op, dt=THETA_DT, bc=prob.bc, spec=spec, backend=backend)
+        u = u0.clone().requires_grad_()
+        kernels.reset_launches()
+        (wts * nm.rollout(u, GRAD_STEPS)).sum().backward()
+        grads[backend], launches[backend] = u.grad, dict(kernels.LAUNCHES)
+    ref = grads["csr"]
+    rel = {b: float((grads[b] - ref).abs().max() / ref.abs().max()) for b in ("ell", "ell_stream")}
+
+    rng = np.random.default_rng(4)
+    n, width = 301, 15
+    cols_np = np.sort(rng.integers(0, n, size=(n, width)), axis=1).astype(np.int32)
+    cols = torch.as_tensor(cols_np, device="cuda")
+    plan = StreamPlan(cols_np, 64)
+    vals, x, f = (torch.as_tensor(rng.normal(size=shape), device="cuda").requires_grad_()
+                  for shape in ((n, width), n, n))
+    calls = {"spmv_ell": (lambda v, xx: spmv_ell(v, cols, xx), (vals, x)),
+             "galerkin_residual_ell": (lambda v, xx, ff: galerkin_residual_ell(v, cols, xx, ff),
+                                       (vals, x, f)),
+             "spmv_ell_stream": (lambda v, xx: spmv_ell_stream(v, plan, xx), (vals, x)),
+             "galerkin_residual_ell_stream": (
+                 lambda v, xx, ff: galerkin_residual_ell_stream(v, plan, xx, ff), (vals, x, f))}
+    gradcheck, gradcheck_launches = {}, {}
+    for name, (fn, inputs) in calls.items():
+        kernels.reset_launches()
+        try:
+            gradcheck[name] = bool(torch.autograd.gradcheck(fn, inputs))
+        except (RuntimeError, GradcheckError) as e:
+            gradcheck[name] = f"failed: {str(e).splitlines()[0][:160]}"
+        gradcheck_launches[name] = kernels.LAUNCHES[name]
+    with torch.no_grad():
+        direct = spmv_ell(vals, cols, x).grad_fn is None
+    out = {"phase": "gradients", "n": MAIN_N, "dofs": prob.space.num_dofs,
+           "steps": GRAD_STEPS, "grad_rel_diff_vs_csr": rel,
+           "grad_max_abs_csr": float(ref.abs().max()), "rollout_launches": launches,
+           "gradcheck": gradcheck, "gradcheck_launches": gradcheck_launches,
+           "gradcheck_shape": f"N={n} L={width} block_n=64", "no_grad_direct": direct}
+    emit(out)
+    for b in ("ell", "ell_stream"):
+        check(rel[b] <= 1e-8, f"gradients: {b} differs from csr by {rel[b]} (relative)")
+    check(launches["ell"]["spmv_ell"] > 0 and launches["ell_stream"]["spmv_ell_stream"] > 0,
+          "gradients: the rollouts did not launch B3/B5")
+    for name, ok in gradcheck.items():
+        check(ok is True, f"gradients: gradcheck of {name}: {ok}")
+        check(gradcheck_launches[name] > 0, f"gradients: gradcheck never launched {name}")
+    check(direct, "gradients: a call under no_grad recorded an autograd node")
+    return out
+
+
+def device_line() -> tuple[str, str]:
+    """(the nvidia-smi name/power-limit line, torch's device name)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    return smi, torch.cuda.get_device_name(0)
+
+
+ONLY_PHASES = ("host_cost", "ell_timing", "gradients")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", help="comma-separated phases to run alone: "
+                    + ", ".join(ONLY_PHASES))
+    ap.add_argument("--src", help="import repro_torch from SRC/src instead of this checkout")
+    args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else None
+    if only and not set(only) <= set(ONLY_PHASES):
+        ap.error(f"--only takes {', '.join(ONLY_PHASES)}, got {args.only}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    src = Path(args.src).resolve() / "src" if args.src else ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no repro_torch package under {src}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    if only:
+        return run_only(only)
+    from repro_torch import kernels
+
+    smi, name = device_line()
     bw, fp64 = card_peaks(name)
     t0 = time.perf_counter()
-    ptxas = start_ptxas("spmv_ell_stream")
+    ptxas = {source: start_ptxas(source) for source in ("spmv_ell", "spmv_ell_stream")}
     try:
         kernels.build()
     finally:
-        report = ptxas_report(ptxas)
+        reports = {source: ptxas_report(proc) for source, proc in ptxas.items()}
     emit({"phase": "device", "nvidia_smi": smi, "device": name, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "peak_bytes_per_s": bw, "peak_fp64_per_s": fp64})
-    emit({"phase": "device", "ptxas": "src/repro_torch/kernels/csrc/spmv_ell_stream.cu",
-          "kernels": report})
+    for source, report in reports.items():
+        emit({"phase": "device", "ptxas": f"src/repro_torch/kernels/csrc/{source}.cu",
+              "kernels": report})
 
     phase_kernels_small()
     phase_reference()
@@ -862,6 +1139,7 @@ def main() -> int:
     k_stream, stream_launches = phase_stream_solve()
     rows = phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64)
     phase_second_entry()
+    phase_gradients()
 
     # each kernel's launches on the path that runs it: B1-B4 on the main
     # path, B5 on the θ rollout, B6 in the n = 96 streaming solve
@@ -883,6 +1161,29 @@ def main() -> int:
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+def run_only(only) -> int:
+    """The phases of ``--only`` on the repro_torch on the path, in the order
+    of ``ONLY_PHASES``, then the card's line and a ``partial_run`` line
+    naming them (not the full run's last line)."""
+    from repro_torch import kernels
+
+    smi, name = device_line()
+    t0 = time.perf_counter()
+    kernels.build()
+    emit({"phase": "device", "nvidia_smi": smi, "device": name, "src": sys.path[0],
+          "build_s": time.perf_counter() - t0})
+    phases = {"host_cost": phase_host_cost,
+              "ell_timing": lambda: phase_ell_timing(*card_peaks(name)),
+              "gradients": phase_gradients}
+    for phase in ONLY_PHASES:
+        if phase in only:
+            phases[phase]()
+    print(smi)
+    emit({"partial_run": {"phases": [p for p in ONLY_PHASES if p in only],
+                          "src": sys.path[0], "passed": True}})
     return 0
 
 

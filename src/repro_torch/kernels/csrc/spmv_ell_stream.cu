@@ -64,6 +64,7 @@
 // stages fit.
 #include <cstdint>
 
+#include "tg_async.cuh"
 #include "tg_common.cuh"
 
 namespace {
@@ -73,40 +74,6 @@ constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // warp 0 is the producer
 constexpr int kTileRows = 128;             // keep in step with TILE_ROWS in spmv_ell.py
 constexpr int kMaxBuffers = 8;             // keep in step with MAX_BUFFERS in spmv_ell.py
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
 
 // Named barrier `id` (1..kMaxBuffers: stage id - 1) between the consumers,
 // which arrive when they are done with the stage, and the producer, which
@@ -118,52 +85,6 @@ __device__ __forceinline__ void stage_done(int id) {
 
 __device__ __forceinline__ void stage_wait(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One lane's part of a stage fill: copy `bytes` bytes from src to dst, where
-// dst and src agree modulo 16 (both are 4-byte aligned).
-struct Part {
-  unsigned char* dst = nullptr;
-  const unsigned char* src = nullptr;
-  unsigned bytes = 0;
-};
-
-// Each lane of the producer warp holds one part (or none).  A bulk copy needs
-// 16-byte-aligned ends, so the lane copies its part's unaligned head and tail
-// (at most 12 bytes each) word by word, fences those plain writes against
-// later bulk writes to the same bytes, and bulk-copies the aligned middle.
-// The barrier gets one arrival (count 1), from lane 0 with the warp's total
-// bulk bytes, after the warp syncs so that lane 0's release covers every
-// lane's plain writes; the bulk copies are issued after it.
-__device__ __forceinline__ void fill(const Part& part, uint64_t* bar, int lane) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(part.src);
-  const uintptr_t e = a + part.bytes;
-  uintptr_t lo = (a + 15) & ~uintptr_t(15);
-  uintptr_t hi = e & ~uintptr_t(15);
-  if (hi <= lo) lo = hi = e;  // too short: all plain
-  const unsigned head = static_cast<unsigned>(lo - a);
-  const unsigned tail = static_cast<unsigned>(hi - a);
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(part.src);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(part.dst);
-  for (unsigned w = 0; w < head / 4; ++w) dst[w] = src[w];
-  for (unsigned w = tail / 4; w < part.bytes / 4; ++w) dst[w] = src[w];
-  if (head != 0 || tail != part.bytes) {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  const unsigned bulk = static_cast<unsigned>(hi - lo);
-  const unsigned total = __reduce_add_sync(0xffffffffu, bulk);
-  if (lane == 0) mbar_arrive_expect_tx(bar, total);
-  __syncwarp();
-  if (bulk) bulk_copy(part.dst + head, part.src + head, bulk, bar);
 }
 
 template <typename T>

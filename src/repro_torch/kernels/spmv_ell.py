@@ -9,7 +9,10 @@ with a zero value (:meth:`repro_torch.core.sparse.CSRPattern.ell_layout`
 builds it so); the kernels rely on that and do not test slots.
 
 * :func:`spmv_ell` / :func:`galerkin_residual_ell` — the **broadcast**
-  plan: every row gathers from the whole of ``x``.
+  plan: every row gathers from the whole of ``x``.  The kernel makes one
+  pass over 32-row warp tiles: each warp bulk-copies its tile's vals and
+  cols into shared memory, and lane i sums row i (header of
+  ``csrc/spmv_ell.cu``).
 * :func:`spmv_ell_stream` / :func:`galerkin_residual_ell_stream` — the
   **streaming** plan: a :class:`StreamPlan` (host precompute on the static
   column table) rebases the columns of each ``block_n``-row block into the
@@ -44,6 +47,19 @@ The schedule (``plan.ring``, ``plan.load_lo``, the CTA runs) is host-side
 numpy, staged on a device once with the plan; the footprint
 (:func:`stream_smem_bytes`: ring + stages + barriers) does not depend on N
 and is checked against the card's opt-in shared-memory limit before launch.
+
+Gradients.  The four wrappers are differentiable in ``vals`` and the
+vectors on every device, as the reference's jnp ``ell`` is.  Where grad is
+enabled and an input requires it, the call goes through an
+:class:`torch.autograd.Function` whose forward is the same kernel (or, on
+the CPU, the same plain version) and whose backward is plain torch on the
+same device, as the JAX package has no backward kernel:
+``vals̄[r, l] = ȳ[r]·x[cols[r, l]]``, ``x̄ = Σ vals[r, l]·ȳ[r]`` scattered
+onto ``cols[r, l]`` with ``index_add_``, and ``f̄ = −ȳ`` for the residuals;
+the streaming pair scatters in global columns (:meth:`StreamPlan.global_cols`).
+Padded slots get a nonzero ``vals̄`` (ȳ[r]·x[r]), which
+:func:`repro_torch.core.sparse.csr_to_ell` drops on its way back to the CSR
+values.  Otherwise the wrappers launch directly, with no autograd node.
 """
 
 from __future__ import annotations
@@ -94,11 +110,25 @@ def _check_shapes(name, vals, cols, *vecs):
             raise ValueError(f"{name}: vectors must be ({vals.shape[0]},), got {tuple(v.shape)}")
 
 
-def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """vals/cols (N, L), x (N,) → y = Σ_l vals[:, l]·x[cols[:, l]] (N,).
+def _needs_graph(*tensors) -> bool:
+    """Whether a call must record an autograd node: grad is enabled and an
+    input requires it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    _check_shapes("spmv_ell", vals, cols, x)
+
+def _ell_vjp(vals, cols, x, gy, need_vals, need_x):
+    """``(vals̄, x̄)`` of y = Σ_l vals[:, l]·x[cols[:, l]] for the cotangent
+    ``gy``, in plain torch on ``gy``'s device; ``None`` where not needed."""
+    idx = cols.long()
+    g_vals = gy[:, None] * x[idx] if need_vals else None
+    g_x = None
+    if need_x:
+        g_x = torch.zeros_like(x).index_add_(0, idx.reshape(-1),
+                                             (vals * gy[:, None]).reshape(-1))
+    return g_vals, g_x
+
+
+def _spmv_ell(vals, cols, x):
     if all(t.device.type == "cpu" for t in (vals, cols, x)):
         return spmv_ell_ref(vals, cols, x)
     dtype = _cuda.check_operands("spmv_ell", {"vals": vals, "cols": cols, "x": x})
@@ -110,12 +140,7 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.T
     return y
 
 
-def galerkin_residual_ell(vals: torch.Tensor, cols: torch.Tensor, u: torch.Tensor,
-                          f: torch.Tensor) -> torch.Tensor:
-    """Fused r = K·u − f in one pass over the ELL operator.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    _check_shapes("galerkin_residual_ell", vals, cols, u, f)
+def _residual_ell(vals, cols, u, f):
     if all(t.device.type == "cpu" for t in (vals, cols, u, f)):
         return galerkin_residual_ell_ref(vals, cols, u, f)
     dtype = _cuda.check_operands("galerkin_residual_ell",
@@ -126,6 +151,46 @@ def galerkin_residual_ell(vals: torch.Tensor, cols: torch.Tensor, u: torch.Tenso
         _cuda.launch("galerkin_residual_ell", "spmv_ell",
                      _cuda.symbol("tg_residual_ell", dtype), vals, cols, u, f, r, n, width)
     return r
+
+
+class _Ell(torch.autograd.Function):
+    """B3 (``f`` None) or B4 around the kernel, with the backward of
+    y = Σ_l vals[:, l]·x[cols[:, l]] (− f)."""
+
+    @staticmethod
+    def forward(ctx, vals, cols, x, f):
+        ctx.save_for_backward(vals, cols, x)
+        return _spmv_ell(vals, cols, x) if f is None else _residual_ell(vals, cols, x, f)
+
+    @staticmethod
+    def backward(ctx, gy):
+        vals, cols, x = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_vals, g_x = _ell_vjp(vals, cols, x, gy, need[0], need[2])
+        return g_vals, None, g_x, -gy if need[3] else None
+
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """vals/cols (N, L), x (N,) → y = Σ_l vals[:, l]·x[cols[:, l]] (N,).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Differentiable in ``vals`` and ``x`` (module docstring)."""
+    _check_shapes("spmv_ell", vals, cols, x)
+    if _needs_graph(vals, x):
+        return _Ell.apply(vals, cols, x, None)
+    return _spmv_ell(vals, cols, x)
+
+
+def galerkin_residual_ell(vals: torch.Tensor, cols: torch.Tensor, u: torch.Tensor,
+                          f: torch.Tensor) -> torch.Tensor:
+    """Fused r = K·u − f in one pass over the ELL operator.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Differentiable in ``vals``, ``u`` and ``f``."""
+    _check_shapes("galerkin_residual_ell", vals, cols, u, f)
+    if _needs_graph(vals, u, f):
+        return _Ell.apply(vals, cols, u, f)
+    return _residual_ell(vals, cols, u, f)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +250,7 @@ class StreamPlan:
         self.load_lo = load_lo.astype(np.int32)
 
         self._staged: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+        self._global: dict[torch.device, torch.Tensor] = {}
         self._runs: dict[tuple, tuple[torch.Tensor, int]] = {}
         telemetry.gauge_set("ell_stream_window", self.window, block_n=block_n)
 
@@ -216,6 +282,19 @@ class StreamPlan:
     def staged(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """``(cols_local, starts)`` on ``device``, uploaded once."""
         return self._upload(device)[:2]
+
+    def global_cols(self, device) -> torch.Tensor:
+        """(N, L) int32 global column table on ``device`` (``starts[b] +
+        cols_local`` of each row), rebuilt from the plan and uploaded once:
+        the columns the backward gathers and scatters in."""
+        device = torch.device(device)
+        hit = self._global.get(device)
+        if hit is None:
+            n = self.n_rows
+            start = np.repeat(self.starts.astype(np.int64), self.block_n)[:n, None]
+            cols = (self.cols_local[:n].astype(np.int64) + start).astype(np.int32)
+            hit = self._global[device] = torch.from_numpy(cols).to(device)
+        return hit
 
     def schedule(self, device, nbuf: int, itemsize: int) -> tuple[torch.Tensor, torch.Tensor, int]:
         """``(load_lo, runs, n_ctas)`` of a launch on the CUDA ``device`` at
@@ -324,7 +403,9 @@ def _as_plan(cols, block_n: int | None, n: int) -> StreamPlan:
 
 def _stream(name, base, vals, cols, vecs, block_n, nbuf, ref):
     """Shared body of the two streaming wrappers (``name`` is also the
-    launch counter): ``vecs`` is ``{"x": x}`` or ``{"u": u, "f": f}``."""
+    launch counter): ``vecs`` is ``{"x": x}`` or ``{"u": u, "f": f}``.
+    Checks the operands, then launches directly or through
+    :class:`_StreamEll` when the call must record an autograd node."""
     if nbuf is not None and (not isinstance(nbuf, int) or not 1 <= nbuf <= MAX_BUFFERS):
         raise ValueError(f"{name}: nbuf must be None or an int in [1, {MAX_BUFFERS}], "
                          f"got {nbuf!r}")
@@ -337,6 +418,14 @@ def _stream(name, base, vals, cols, vecs, block_n, nbuf, ref):
     for v in vecs.values():
         if tuple(v.shape) != (n,):
             raise ValueError(f"{name}: vectors must be ({n},), got {tuple(v.shape)}")
+    if _needs_graph(vals, *vecs.values()):
+        x, f = (*vecs.values(), None)[:2]
+        return _StreamEll.apply((name, base, ref, plan, nbuf, tuple(vecs)), vals, x, f)
+    return _stream_forward(name, base, ref, plan, nbuf, vals, vecs)
+
+
+def _stream_forward(name, base, ref, plan, nbuf, vals, vecs):
+    n, width = vals.shape
     if all(t.device.type == "cpu" for t in (vals, *vecs.values())):
         return ref(vals, *plan.staged("cpu"), *vecs.values(), plan.block_n, plan.x_len)
     dtype = _cuda.check_operands(name, {"vals": vals, **vecs})
@@ -353,6 +442,25 @@ def _stream(name, base, vals, cols, vecs, block_n, nbuf, ref):
                      starts, load_lo, runs, *vecs.values(), y, n, width, plan.block_n,
                      plan.window, plan.ring, nbuf, n_ctas, smem)
     return y
+
+
+class _StreamEll(torch.autograd.Function):
+    """The streaming SpMV (``f`` None) or residual around the kernel, with
+    its backward in the plan's global columns."""
+
+    @staticmethod
+    def forward(ctx, how, vals, x, f):
+        name, base, ref, plan, nbuf, keys = how
+        ctx.plan = plan
+        ctx.save_for_backward(vals, x)
+        return _stream_forward(name, base, ref, plan, nbuf, vals, dict(zip(keys, (x, f))))
+
+    @staticmethod
+    def backward(ctx, gy):
+        vals, x = ctx.saved_tensors
+        need = ctx.needs_input_grad  # (how, vals, x or u, f)
+        g_vals, g_x = _ell_vjp(vals, ctx.plan.global_cols(gy.device), x, gy, need[1], need[2])
+        return None, g_vals, g_x, -gy if need[3] else None
 
 
 def spmv_ell_stream(vals: torch.Tensor, cols, x: torch.Tensor, *, block_n: int | None = None,

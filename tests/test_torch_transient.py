@@ -2,7 +2,8 @@
 Euler, Crank–Nicolson) rollouts on the ``csr``, ``ell`` and ``ell_stream``
 backends against ``repro.transient`` on the same operators, time-varying
 Dirichlet data, gradients of the ``csr`` rollout against ``jax.grad``,
-checkpoint segmentation, and Newmark-β trajectories and energy."""
+checkpoint segmentation, and Newmark-β trajectories, energy and gradients
+on every backend."""
 
 import functools
 
@@ -264,3 +265,37 @@ def test_newmark_energy_conservation():
     e0 = energy(u0, torch.zeros_like(u0))
     drift = max(abs(float(energy(u, v) - e0)) for u, v in zip(u_traj, v_traj)) / float(e0)
     assert drift < 1e-6, f"Newmark energy drift {drift}"
+
+
+@pytest.mark.parametrize("backend", ["csr", "ell", "ell_stream"])
+def test_newmark_rollout_gradients_match_jax(backend):
+    """∂/∂u₀ and ∂/∂(stiffness values) of a weighted trajectory loss through
+    a Newmark rollout (adjoint solves, and the stiffness applies K·u* on
+    ``backend``) match ``jax.grad`` to 1e-8 relative, as the θ rollout's at
+    ``test_csr_rollout_gradients_match_jax``.  The JAX side runs ``csr`` or
+    its plain-jnp ``ell`` backend."""
+    (_, jbc, jmass, jstiff), (_, tbc, tmass, tstiff), u0 = _setup("tri8")
+    spec_j = jc.SolverSpec(method="cg", tol=1e-13, atol=1e-15)
+    spec_t = tc.SolverSpec(method="cg", tol=1e-13, atol=1e-15)
+    wts = np.random.default_rng(1).normal(size=(6, u0.shape[0]))
+    kv0 = np.array(jstiff.vals)
+
+    def jloss(u, kv):
+        k = jc.CSR(kv, jstiff.indptr, jstiff.indices, jstiff.row_of_nnz, jstiff.shape,
+                   jstiff.diag_pos)
+        nm = JNewmark(jmass, k, 0.01, bc=jbc, spec=spec_j,
+                      backend="csr" if backend == "csr" else "ell")
+        return jnp.sum(jnp.asarray(wts) * nm.rollout(u, 6))
+
+    jg_u, jg_k = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u0), jnp.asarray(kv0))
+    u = torch.as_tensor(u0).clone().requires_grad_()
+    kv = torch.as_tensor(kv0).clone().requires_grad_()
+    nm = NewmarkIntegrator(tmass, tstiff.with_vals(kv), 0.01, bc=tbc, spec=spec_t,
+                           backend=backend)
+    loss = (torch.as_tensor(wts) * nm.rollout(u, 6)).sum()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss(jnp.asarray(u0),
+                                                                 jnp.asarray(kv0))), rtol=1e-12)
+    loss.backward()
+    for got, want in ((u.grad, jg_u), (kv.grad, jg_k)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-8 * np.abs(want).max(), rtol=0)
