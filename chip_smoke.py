@@ -10,9 +10,10 @@ Phases, one JSON line each:
 1. device — the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, and the time to build the CUDA kernels from ``src/`` with nvcc;
    then, on a line each, ``ptxas -v``'s registers, static shared memory and
-   spills for each kernel of ``spmv_ell.cu`` and ``spmv_ell_stream.cu``;
+   spills for each kernel of each source;
 2. kernels_small — every kernel against its plain PyTorch version on the
-   card at ragged shapes, float32 and float64 (B3/B4 at widths 1-40 with N
+   card at ragged shapes, float32 and float64 (B1/B2 also batched, B ∈
+   {1, 3}; B3/B4 at widths 1-45 with N
    not a multiple of 32 and operands one element off 16-byte alignment;
    the streaming kernels at the
    JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
@@ -54,7 +55,26 @@ Phases, one JSON line each:
 10. gradients — at n = 64 the gradient of a Newmark rollout loss with
    respect to u0 through ``backend="ell"`` and ``"ell_stream"`` against
    ``backend="csr"`` (1e-8 relative), and ``torch.autograd.gradcheck`` of
-   B3-B6's autograd Functions in float64 at small N.
+   B1's and B3-B6's autograd Functions in float64 at small N (B1's
+   gradient also against the plain version's, 1e-12);
+11. mixed_bc — ``MixedBCPoisson(disk_tri(256))`` (197,377 DoFs):
+   Dirichlet, Neumann and Robin parts, BiCGSTAB; the volume Map is B1 and
+   the volume and facet Reduces B2 (launch counts and a profiler trace),
+   error against u = x ≤ 1e-6, a scipy residual on the host, and the JAX
+   package's numbers at n_r = 14;
+12. elasticity — ``ElasticityProblem(hollow_cube_tet(48))`` (316,446
+   DoFs, ELL width 45): BiCGSTAB on ``ell``, a scipy residual, the six
+   rigid-body modes through B3 on the un-condensed K, the JAX package's
+   numbers at n = 4 and 8, and B3/B4's times at L = 45;
+13. batched — at n = 64, ``solve_coeff_batch`` over 8 coefficient fields
+   (one batched B1 and one batched B2 launch) and ``solve_batch`` over 8
+   Gaussian right-hand sides, each instance against its single solve; the
+   batched B1/B2 timed against their plain versions and 8 single launches;
+14. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+   the numbers of ``examples/quickstart.py``;
+15. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+   (float32, ~12 GB of device memory), last, so that its allocations do
+   not sit before the earlier phases' first readings.
 
 Then the card's ``nvidia-smi`` line, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -63,7 +83,12 @@ exits non-zero; with no CUDA device it exits 2 and prints no result.
 ``--only`` runs the named phases alone, to hold a change against its
 parent on one card: ``gradients``, ``ell_timing`` (B3/B4 at the n = 64 and
 n = 96 stiffness, built for the phase) and ``host_cost`` (the ELL wrappers'
-host time per call and the n = 64 CG loop's wall time per iteration).
+host time per call and the n = 64 CG loop's wall time per iteration),
+``assembly_cost`` (the wall time of a warm n = 64 assembly) and
+``cold_path`` (reference, main_path and transient in a fresh process: the
+first n = 64 assembly and solve, and the time per θ step); or to try
+``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``,
+``quickstart`` and ``kernels_offsets64`` alone.
 ``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (a checkout of
 another commit) instead.  Such a partial run ends with a ``partial_run``
 line, never with the full run's ``{"ok": true, ...}``.
@@ -154,9 +179,9 @@ def ptxas_report(proc) -> list:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            t = re.search(r"([a-z_]+_kernel)I([fd])((?:Li\d+E)*)", name)
+            t = re.search(r"([a-z0-9_]+_kernel)I([fd])((?:L[ib]\d+E)*)", name)
             args = ["double" if t.group(2) == "d" else "float",
-                    *re.findall(r"Li(\d+)E", t.group(3))] if t else []
+                    *re.findall(r"L[ib](\d+)E", t.group(3))] if t else []
             entry = {"kernel": f"{t.group(1)}<{','.join(args)}>" if t else name}
             rows.append(entry)
         elif entry is not None and "spill stores" in line:
@@ -307,6 +332,7 @@ def phase_kernels_small():
                     cases += 1
     cases += _ell_width_cases(worst)
     cases += _stream_schedule_cases(worst)
+    cases += _batched_cases(worst)
     # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
     cols = np.repeat(np.arange(40_000, dtype=np.int32)[:, None], 3, axis=1)
     cols[::1024, 0] = np.minimum(np.arange(0, 40_000, 1024) + 30_000, 39_999)
@@ -328,8 +354,9 @@ def phase_kernels_small():
 
 
 # B3/B4 widths: one slot, the 2D and 3D P1 stencils, each side of a power
-# of two, the widest tile rows and past them (a warp per row)
-ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40)
+# of two, the widest tile rows and past them (a warp per row), and the 3D
+# elasticity stencil
+ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40, 45)
 def _ell_width_cases(worst) -> int:
     """B3/B4 against their plain versions at every width of ``ELL_WIDTHS``, N not a multiple of 32 (one tile and a ragged
     one; many tiles), operands aligned or one element off 16 bytes."""
@@ -366,6 +393,83 @@ def _ell_width_cases(worst) -> int:
                         worst[name] = max(worst[name], err / scale)
                         cases += 1
     return cases
+
+
+def _batched_cases(worst) -> int:
+    """Batched B1 (ρ (B, E) on shared coordinates) and batched B2 (src
+    (B, n_src) on one table) against their plain versions, B ∈ {1, 3},
+    ragged E, float32 and float64."""
+    from repro_torch.kernels import local_stiffness_p1, seg_reduce
+    from repro_torch.kernels.ref import local_stiffness_p1_ref, seg_reduce_ref
+    from repro_torch.kernels.seg_reduce import ReduceTable
+
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[dtype]
+        for n in (1, 7, 129, 5000):
+            for batch in (1, 3):
+                rng = np.random.default_rng(300 + n + batch)
+                for d in (2, 3):
+                    coords = random_simplices(rng, n, d, dtype)
+                    rho = torch.as_tensor(rng.uniform(0.5, 2.0, (batch, n)), dtype=dtype,
+                                          device="cuda")
+                    err, scale = max_err(local_stiffness_p1(coords, rho),
+                                         local_stiffness_p1_ref(coords, rho))
+                    check(err <= tol * scale,
+                          f"batched local_stiffness_p1 B={batch} d={d} E={n} {dtype}: {err}")
+                    worst["local_stiffness_p1"] = max(worst["local_stiffness_p1"], err / scale)
+                    cases += 1
+                rows = rng.integers(0, n, size=3 * n + 1)
+                perm = np.argsort(rows, kind="stable")
+                table = ReduceTable(perm, rows[perm], rows, n, "cuda")
+                src = torch.as_tensor(rng.normal(size=(batch, rows.shape[0])), dtype=dtype,
+                                      device="cuda")
+                err, scale = max_err(seg_reduce(src, table, batch=True),
+                                     seg_reduce_ref(src, table.rows, n, batch=True))
+                check(err <= tol * scale, f"batched seg_reduce B={batch} rows={n} {dtype}: {err}")
+                worst["seg_reduce"] = max(worst["seg_reduce"], err / scale)
+                cases += 1
+    return cases
+
+
+def phase_kernels_offsets64() -> dict:
+    """Batched B1 and B2 past 2^31 elements in all (float32): B1 with 9 ×
+    2^24 well-shaped tetrahedra (2.4e9 outputs), B2 with 17 × 2^27 source
+    slots; the last instance, whose offsets pass 2^31, against the plain
+    version."""
+    from repro_torch.kernels import local_stiffness_p1, seg_reduce
+    from repro_torch.kernels.ref import local_stiffness_p1_ref
+    from repro_torch.kernels.seg_reduce import ReduceTable
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    e, batch = 1 << 24, 9
+    ident = torch.cat([torch.zeros(1, 3), torch.eye(3)]).to("cuda")
+    coords = (torch.randn((e, 1, 3), generator=gen, device="cuda") + ident
+              + 0.1 * torch.randn((e, 4, 3), generator=gen, device="cuda"))
+    rho = torch.rand((batch, e), generator=gen, device="cuda") + 0.5
+    k_local = local_stiffness_p1(coords, rho)
+    check(batch * e * 16 > 2 ** 31, "B1 offsets case below 2^31")
+    err, scale = max_err(k_local[-1], local_stiffness_p1_ref(coords, rho[-1]))
+    out["local_stiffness_p1"] = {"B": batch, "E": e, "elements": batch * e * 16,
+                                 "max_abs_err": err, "scale": scale}
+    check(err <= TOL[torch.float32] * scale, f"B1 past 2^31: {err}")
+    del coords, rho, k_local
+    n_src, batch, width = 1 << 27, 17, 8
+    slots = np.arange(n_src, dtype=np.int64)
+    table = ReduceTable(slots, slots // width, slots // width, n_src // width, "cuda")
+    src = torch.rand((batch, n_src), generator=gen, device="cuda")
+    got = seg_reduce(src, table, batch=True)
+    want = src[-1].view(-1, width).sum(dim=1)
+    check(batch * n_src > 2 ** 31, "B2 offsets case below 2^31")
+    err, scale = max_err(got[-1], want)
+    out["seg_reduce"] = {"B": batch, "n_src": n_src, "elements": batch * n_src,
+                         "max_abs_err": err, "scale": scale}
+    check(err <= TOL[torch.float32] * scale, f"B2 past 2^31: {err}")
+    del src, got, want, table
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_offsets64", **out})
+    return out
 
 
 def _banded(rows, centre, half=40):
@@ -862,6 +966,33 @@ def phase_host_cost(reps: int = 7):
     return out
 
 
+def phase_cold_path():
+    """The earlier cells' first readings in a fresh process (``--only``):
+    the reference solves, then the main path (its first n = 64 assembly and
+    solve) and the transient phase (time per θ and Newmark step), as the
+    full run orders them after the kernel checks."""
+    phase_reference()
+    prob = phase_main_path()[0]
+    phase_transient(prob)
+
+
+def phase_assembly_cost(reps: int = 11):
+    """The wall time of a warm n = 64 assembly (``--only``): stiffness and
+    load with ρ = 1 and with ρ = 1 + x, ms, median over ``reps`` runs each
+    (host-bound: a few kernels behind several ms of Python)."""
+    from repro_torch.core import unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+
+    prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    out = {"phase": "assembly_cost"}
+    for label, rho in (("rho_1", None), ("rho_1_plus_x", lambda x: 1.0 + x[..., 0])):
+        prob.assemble(rho=rho, f=1.0)
+        runs = [1e3 * timed(lambda: prob.assemble(rho=rho, f=1.0))[1] for _ in range(reps)]
+        out[label] = {"median_ms": statistics.median(runs), "runs_ms": runs}
+    emit(out)
+    return out
+
+
 def bounder(bw, fp64):
     """bound(bytes, flops) -> (ms, "bytes" | "operations") on this card."""
     def bound(nbytes, flops):
@@ -1020,7 +1151,9 @@ def phase_gradients():
     from repro_torch.core import SolverSpec, unit_cube_tet, weakform as wf
     from repro_torch.fem import PoissonProblem
     from repro_torch.kernels import (StreamPlan, galerkin_residual_ell,
-                                     galerkin_residual_ell_stream, spmv_ell, spmv_ell_stream)
+                                     galerkin_residual_ell_stream, local_stiffness_p1,
+                                     spmv_ell, spmv_ell_stream)
+    from repro_torch.kernels.ref import local_stiffness_p1_ref
     from repro_torch.transient import NewmarkIntegrator
     from torch.autograd.gradcheck import GradcheckError
 
@@ -1063,13 +1196,30 @@ def phase_gradients():
         except (RuntimeError, GradcheckError) as e:
             gradcheck[name] = f"failed: {str(e).splitlines()[0][:160]}"
         gradcheck_launches[name] = kernels.LAUNCHES[name]
+    # B1's Function: gradcheck (batched ρ), and Σ w·K's gradient against the
+    # plain version's autograd on the card
+    coords = random_simplices(rng, 40, 3, torch.float64).requires_grad_()
+    rho = torch.as_tensor(rng.uniform(0.5, 2.0, (2, 40)), device="cuda").requires_grad_()
+    kernels.reset_launches()
+    try:
+        gradcheck["local_stiffness_p1"] = bool(torch.autograd.gradcheck(
+            local_stiffness_p1, (coords[:6].detach().clone().requires_grad_(),
+                                 rho[:, :6].detach().clone().requires_grad_())))
+    except (RuntimeError, GradcheckError) as e:
+        gradcheck["local_stiffness_p1"] = f"failed: {str(e).splitlines()[0][:160]}"
+    w = torch.as_tensor(rng.normal(size=(2, 40, 4, 4)), device="cuda")
+    g_kernel = torch.autograd.grad((w * local_stiffness_p1(coords, rho)).sum(), (coords, rho))
+    gradcheck_launches["local_stiffness_p1"] = kernels.LAUNCHES["local_stiffness_p1"]
+    g_plain = torch.autograd.grad((w * local_stiffness_p1_ref(coords, rho)).sum(), (coords, rho))
+    b1_grad_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_kernel, g_plain))
     with torch.no_grad():
         direct = spmv_ell(vals, cols, x).grad_fn is None
     out = {"phase": "gradients", "n": MAIN_N, "dofs": prob.space.num_dofs,
            "steps": GRAD_STEPS, "grad_rel_diff_vs_csr": rel,
            "grad_max_abs_csr": float(ref.abs().max()), "rollout_launches": launches,
            "gradcheck": gradcheck, "gradcheck_launches": gradcheck_launches,
-           "gradcheck_shape": f"N={n} L={width} block_n=64", "no_grad_direct": direct}
+           "gradcheck_shape": f"N={n} L={width} block_n=64; B1: B=2 E=6",
+           "b1_grad_rel_diff_vs_plain": b1_grad_err, "no_grad_direct": direct}
     emit(out)
     for b in ("ell", "ell_stream"):
         check(rel[b] <= 1e-8, f"gradients: {b} differs from csr by {rel[b]} (relative)")
@@ -1079,7 +1229,405 @@ def phase_gradients():
         check(ok is True, f"gradients: gradcheck of {name}: {ok}")
         check(gradcheck_launches[name] > 0, f"gradients: gradcheck never launched {name}")
     check(direct, "gradients: a call under no_grad recorded an autograd node")
+    check(b1_grad_err <= 1e-12, f"gradients: B1's gradient differs from the plain version's "
+          f"by {b1_grad_err}")
     return out
+
+
+# The JAX package's MixedBCPoisson on disk_tri(14) (bench_mixed_bc's data,
+# u = x), on the CPU: 631 DoFs, 92 BiCGSTAB iterations, relative error
+# 7.056437587069318e-05.  The iteration count is not reproducible past
+# rounding there: one-ulp perturbations of the reference's own condensed
+# values gave 86-93 iterations (ROADMAP C2), so the port is held to that
+# spread ±1.
+JAX_MIXED_REFERENCE = {"n_r": 14, "dofs": 631, "iters": 92, "iters_spread": (86, 93),
+                       "rel_err": 7.056437587069318e-05}
+MIXED_N_R = 256
+# The JAX package's ElasticityProblem(hollow_cube_tet(n)).solve() on the CPU:
+# n -> (DoFs, BiCGSTAB iterations, max |u|); at n = 4 every DoF lies on the
+# boundary, so nothing is solved.
+JAX_ELASTICITY_REFERENCE = {4: (372, 0, 0.0), 8: (2_106, 15, 0.019151727213464177)}
+ELASTICITY_N = 48
+BATCH = 8
+# examples/quickstart.py (the JAX package) on the CPU
+JAX_QUICKSTART = {"dofs": 729, "iters": 16, "max_u": "0.054918",
+                  "batched_iters": [30] * 8, "advection_max_u": "0.7236"}
+
+
+def _on_lower_arc(c):
+    return (np.sqrt(c[:, 0] ** 2 + c[:, 1] ** 2) > 0.95) & (c[:, 1] <= 0)
+
+
+def _mixed_problem(n_r):
+    """bench_mixed_bc's disk: Dirichlet off the lower arc, Neumann on its
+    x > 0 half, Robin (α = 1) on its x ≤ 0 half."""
+    from repro_torch.core import disk_tri
+    from repro_torch.fem import MixedBCPoisson
+
+    return MixedBCPoisson(disk_tri(n_r, center=(0.0, 0.0), radius=1.0), device="cuda",
+                          dirichlet_pred=lambda c: ~_on_lower_arc(c),
+                          neumann_pred=lambda c: _on_lower_arc(c) & (c[:, 0] > 0),
+                          robin_pred=lambda c: _on_lower_arc(c) & (c[:, 0] <= 0))
+
+
+def _solve_u_eq_x(prob):
+    """u = x is harmonic; the Neumann data is x/r and the Robin data x/r + x."""
+    r = lambda x: torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)  # noqa: E731
+    res = prob.solve(f=0.0, g_neumann=lambda x: x[..., 0] / r(x), robin_alpha=1.0,
+                     g_robin=lambda x: x[..., 0] / r(x) + x[..., 0],
+                     dirichlet_values=lambda p: p[:, 0])
+    exact = prob.space.dof_points[:, 0]
+    err = float(np.linalg.norm(res.u.cpu().numpy() - exact) / np.linalg.norm(exact))
+    return res, err
+
+
+def _kernel_calls(prof) -> dict:
+    """Device kernel launches of a torch.profiler trace by the name of each
+    of this repository's kernels."""
+    names = {"p1_stiffness_kernel": "local_stiffness_p1", "seg_reduce_kernel": "seg_reduce",
+             "tile_kernel": "spmv_ell/residual (tiles)",
+             "wide_kernel": "spmv_ell/residual (warp per row)"}
+    out = dict.fromkeys(names.values(), 0)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for key, label in names.items():
+            if key in ev.key:
+                out[label] += ev.count
+    return out
+
+
+def phase_mixed_bc():
+    """MixedBCPoisson (paper SM B.1.5) on disk_tri(256): the diffusion Map
+    is B1 beside the Robin facet terms, the volume and facet Reduces are
+    B2, BiCGSTAB runs B3 and the residual B4; against u = x, a scipy
+    residual on the host, and the JAX package's numbers at n_r = 14."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    ref = JAX_MIXED_REFERENCE
+    small = _mixed_problem(ref["n_r"])
+    res14, err14 = _solve_u_eq_x(small)
+    row14 = {"n_r": ref["n_r"], "dofs": small.space.num_dofs, "iters": res14.iters,
+             "jax_iters": ref["iters"], "jax_iters_spread": ref["iters_spread"],
+             "rel_err": err14, "jax_rel_err": ref["rel_err"], "residual": res14.residual}
+
+    prob, setup_s = timed(lambda: _mixed_problem(MIXED_N_R))
+    _solve_u_eq_x(prob)  # builds the ELL layout
+    kernels.reset_launches()
+    (res, err), solve_s = timed(lambda: _solve_u_eq_x(prob))
+    launches = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (res_prof, _), prof_s = timed(lambda: _solve_u_eq_x(prob))
+    busy_ms, top = _device_time(prof)
+    calls = _kernel_calls(prof)
+
+    # the condensed system on the host: ‖K u − f‖ / ‖f‖ by scipy
+    from repro_torch.core import forms, weakform as wf
+    r_at = lambda x: torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)  # noqa: E731
+    k = prob.asm.assemble(wf.diffusion() + wf.robin(1.0, on=prob._fa_r))
+    g_r = forms.eval_coefficient(lambda x: x[..., 0] / r_at(x) + x[..., 0], prob._ctx_r)
+    g_n = forms.eval_coefficient(lambda x: x[..., 0] / r_at(x), prob._ctx_n)
+    load = prob.asm.assemble_rhs(wf.source(0.0) + wf.neumann(g_r, on=prob._fa_r)
+                                 + wf.neumann(g_n, on=prob._fa_n))
+    bvals = torch.as_tensor(prob.space.dof_points[prob.bc.bc_dofs][:, 0], device="cuda")
+    kc, fc = prob.bc.apply(k, load, bvals)
+    a, u, f = kc.to_scipy(), res.u.cpu().numpy(), fc.cpu().numpy()
+    r_host, f_norm = float(np.linalg.norm(a @ u - f)), float(np.linalg.norm(f))
+    rel_host = r_host / f_norm
+
+    out = {"phase": "mixed_bc", "n_r": MIXED_N_R, "dofs": prob.space.num_dofs,
+           "triangles": prob.mesh.num_cells, "nnz": prob.plan.nnz,
+           "ell_width": kc.pattern.ell_layout()[2],
+           "facets": {"dirichlet": len(prob.d_facets), "neumann": len(prob.n_facets),
+                      "robin": len(prob.r_facets)},
+           "iters": res.iters, "residual": res.residual, "residual_scipy_host": rel_host,
+           "residual_norm_host": r_host, "f_norm": f_norm,
+           "converged": res.converged, "rel_err_vs_u_eq_x": err, "setup_s": setup_s,
+           "solve_s": solve_s, "launches": launches,
+           "profiled": {"wall_ms": 1e3 * prof_s, "device_busy_ms": busy_ms,
+                        "device_idle_share": 1 - busy_ms / (1e3 * prof_s),
+                        "iters": res_prof.iters, "kernel_calls": calls,
+                        "top_kernels": top},
+           "jax_reference": row14}
+    emit(out)
+    check(small.space.num_dofs == ref["dofs"], f"mixed_bc n_r=14: DoFs {row14}")
+    lo, hi = ref["iters_spread"]
+    check(lo - 1 <= res14.iters <= hi + 1, f"mixed_bc n_r=14: iterations {row14}")
+    check(abs(err14 - ref["rel_err"]) <= 1e-8, f"mixed_bc n_r=14: error {row14}")
+    check(res14.converged and res.converged, "mixed_bc: a solve did not converge")
+    check(err <= 1e-6, f"mixed_bc: relative error {err} against u = x")
+    check(abs(rel_host - res.residual) <= 1e-8 * rel_host + 1e-13,
+          f"mixed_bc: residual {res.residual} vs host {rel_host}")
+    # the stopping rule ‖r‖ ≤ max(tol·‖f‖, atol), tol = atol = 1e-10
+    check(r_host <= max(1e-10 * f_norm, 1e-10) * (1 + 1e-6),
+          f"mixed_bc: host residual norm {r_host} above the stopping rule")
+    # one assembly: one volume Map (B1); Reduces of K, the Robin matrix, the
+    # volume load and the two boundary loads (B2)
+    check(launches["local_stiffness_p1"] == 1, f"mixed_bc: B1 launches {launches}")
+    check(launches["seg_reduce"] == 5, f"mixed_bc: B2 launches {launches}")
+    check(launches["spmv_ell"] == 2 * res.iters + 1, f"mixed_bc: B3 launches {launches}")
+    check(launches["galerkin_residual_ell"] == 1, f"mixed_bc: B4 launches {launches}")
+    check(calls["local_stiffness_p1"] == 1 and calls["seg_reduce"] == 5,
+          f"mixed_bc: the profiler saw {calls}")
+    # rows 8 wide: B3 (2·iters + 1) and B4 (1) on the tile kernel
+    check(calls["spmv_ell/residual (tiles)"] == 2 * res_prof.iters + 2
+          and calls["spmv_ell/residual (warp per row)"] == 0,
+          f"mixed_bc: the profiler saw {calls} for {res_prof.iters} iterations")
+    return out
+
+
+def rigid_body_modes(points: np.ndarray) -> np.ndarray:
+    """The d(d+1)/2 rigid-body displacement fields (translations and
+    infinitesimal rotations), interleaved, one per row."""
+    n, d = points.shape
+    modes = []
+    for i in range(d):
+        t = np.zeros((n, d))
+        t[:, i] = 1.0
+        modes.append(t.reshape(-1))
+    for i in range(d):
+        for j in range(i + 1, d):
+            r = np.zeros((n, d))
+            r[:, i], r[:, j] = -points[:, j], points[:, i]
+            modes.append(r.reshape(-1))
+    return np.stack(modes)
+
+
+def phase_elasticity(bw, fp64):
+    """ElasticityProblem(hollow_cube_tet(48)) (paper Benchmark II): BiCGSTAB
+    on `ell`, whose rows are 45 wide (B3/B4 take the warp-per-row kernel);
+    a scipy residual on the host; the un-condensed K through B3 on the six
+    rigid-body modes; the JAX package's numbers at n = 4 and 8; B3/B4's
+    times at L = 45."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import csr_to_ell, hollow_cube_tet, weakform as wf
+    from repro_torch.fem import ElasticityProblem
+    from repro_torch.kernels import spmv_ell
+
+    refs = []
+    for n, (dofs, iters, umax) in JAX_ELASTICITY_REFERENCE.items():
+        p = ElasticityProblem(hollow_cube_tet(n), device="cuda")
+        r = p.solve()
+        row = {"n": n, "dofs": p.space.num_dofs, "iters": r.iters, "jax_iters": iters,
+               "max_abs_u": float(r.u.abs().max()), "jax_max_abs_u": umax}
+        refs.append(row)
+        check(p.space.num_dofs == dofs and abs(r.iters - iters) <= 1, f"elasticity: {row}")
+        check(abs(row["max_abs_u"] - umax) <= 1e-9 * max(umax, 1.0), f"elasticity: {row}")
+
+    prob, setup_s = timed(lambda: ElasticityProblem(hollow_cube_tet(ELASTICITY_N), device="cuda"))
+    kc, fc = prob.assemble()
+    prob.solve()  # builds the ELL layout
+    kernels.reset_launches()
+    res, solve_s = timed(lambda: prob.solve())
+    launches = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res_prof, prof_s = timed(lambda: prob.solve())
+    busy_ms, top = _device_time(prof)
+    calls = _kernel_calls(prof)
+    a, u, f = kc.to_scipy(), res.u.cpu().numpy(), fc.cpu().numpy()
+    r_host, f_norm = float(np.linalg.norm(a @ u - f)), float(np.linalg.norm(f))
+    rel_host = r_host / f_norm
+
+    k_full = prob.asm.assemble(wf.elasticity(prob.lam, prob.mu))
+    ell = csr_to_ell(k_full)
+    k_norm = float(k_full.vals.abs().max())
+    modes = torch.as_tensor(rigid_body_modes(prob.mesh.points), device="cuda")
+    null = [float(spmv_ell(ell.vals, ell.cols_dev, r).abs().max()) / k_norm for r in modes]
+    rows = ell_rows({"n48": kc}, bounder(bw, fp64), np.random.default_rng(45))
+    for name in rows:
+        rows[name]["launches_in_solve"] = launches[name]
+    out = {"phase": "elasticity", "n": ELASTICITY_N, "dofs": prob.space.num_dofs,
+           "tets": prob.mesh.num_cells, "nnz": prob.plan.nnz,
+           "ell_width": kc.pattern.ell_layout()[2], "iters": res.iters,
+           "residual": res.residual, "residual_scipy_host": rel_host,
+           "residual_norm_host": r_host, "f_norm": f_norm,
+           "converged": res.converged, "max_abs_u": float(res.u.abs().max()),
+           "setup_s": setup_s, "solve_s": solve_s, "launches": launches,
+           "profiled": {"wall_ms": 1e3 * prof_s, "device_busy_ms": busy_ms,
+                        "device_idle_share": 1 - busy_ms / (1e3 * prof_s),
+                        "iters": res_prof.iters, "kernel_calls": calls,
+                        "top_kernels": top},
+           "rigid_body_max_rel": null, "jax_reference": refs, "kernels": rows}
+    emit(out)
+    check(res.converged, "elasticity: BiCGSTAB did not converge")
+    check(abs(rel_host - res.residual) <= 1e-8 * rel_host + 1e-13,
+          f"elasticity: residual {res.residual} vs host {rel_host}")
+    check(r_host <= max(1e-10 * f_norm, 1e-10) * (1 + 1e-6),
+          f"elasticity: host residual norm {r_host} above the stopping rule")
+    check(max(null) <= 1e-10, f"elasticity: rigid-body modes {null}")
+    check(launches["seg_reduce"] == 2 and launches["local_stiffness_p1"] == 0,
+          f"elasticity: assembly launches {launches}")
+    check(launches["spmv_ell"] == 2 * res.iters + 1 and launches["galerkin_residual_ell"] == 1,
+          f"elasticity: solve launches {launches}")
+    # rows 45 wide: B3 (2·iters + 1) and B4 (1) on the warp-per-row kernel;
+    # the assembly's two Reduces on B2, no B1 (a vector space)
+    check(calls["spmv_ell/residual (warp per row)"] == 2 * res_prof.iters + 2
+          and calls["spmv_ell/residual (tiles)"] == 0,
+          f"elasticity: the profiler saw {calls} for {res_prof.iters} iterations")
+    check(calls["seg_reduce"] == 2 and calls["local_stiffness_p1"] == 0,
+          f"elasticity: the profiler saw {calls}")
+    return out
+
+
+def phase_batched(prob, bw, fp64):
+    """Batched families (SM B.1.4) at n = 64: ``solve_coeff_batch`` with
+    B = 8 fields ρ_b = 1 + 0.5·b·x (one B1 and one B2 launch for the
+    batched assembly), ``solve_batch`` with the quickstart's 8 Gaussian
+    right-hand sides; each instance against its single solve (1e-10
+    relative, equal iterations); the batched B1/B2 against their plain
+    versions and against B single launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import (SolverSpec, assemble_batched, assemble_rhs,
+                                  sparse_solve, sparse_solve_batched, weakform as wf)
+    from repro_torch.kernels import local_stiffness_p1, seg_reduce
+    from repro_torch.kernels.ref import local_stiffness_p1_ref, seg_reduce_ref
+
+    if prob is None:
+        from repro_torch.core import unit_cube_tet
+        from repro_torch.fem import PoissonProblem
+
+        prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    plan = prob.plan
+    x_mid = plan.coords[:, :, 0].mean(dim=1)
+    rho = torch.stack([1.0 + 0.5 * b * x_mid for b in range(BATCH)])
+    spec = SolverSpec(method="cg", tol=1e-10, atol=1e-10, maxiter=10000)
+
+    kernels.reset_launches()
+    kb, assemble_s = timed(lambda: assemble_batched(plan, wf.diffusion(rho[0]),
+                                                    leaves_batch=(rho, None)))
+    asm_launches = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed(lambda: assemble_batched(plan, wf.diffusion(rho[0]), leaves_batch=(rho, None)))
+    asm_calls = _kernel_calls(prof)
+    kc = prob.bc.apply_matrix_only(kb)
+    load = prob.bc.project_residual(assemble_rhs(plan, wf.source(1.0)))
+    (u_b, info_b), solve_s = timed(lambda: sparse_solve_batched(kc, load, spec,
+                                                                return_info=True))
+    u_api = prob.solve_coeff_batch(rho)
+    coeff_rows = []
+    for b in range(BATCH):
+        k1 = prob.asm.assemble(wf.diffusion(rho[b]))
+        u1, i1 = sparse_solve(prob.bc.apply_matrix_only(k1), load, spec, return_info=True)
+        rel = float((u_b[b] - u1).abs().max() / u1.abs().max())
+        coeff_rows.append({"b": b, "iters": int(info_b.iters[b]), "single_iters": i1.iters,
+                           "rel_diff": rel, "vals_equal": bool(torch.equal(kb.vals[b], k1.vals))})
+    api_diff = float((u_api - u_b).abs().max() / u_b.abs().max())
+
+    rng = np.random.default_rng(0)  # the quickstart's right-hand sides, at n = 64
+    f_batch = torch.as_tensor(rng.normal(size=(BATCH, prob.space.num_dofs)), device="cuda")
+    kernels.reset_launches()
+    (us, iters), batch_s = timed(lambda: prob.solve_batch(f_batch))
+    rhs_launches = dict(kernels.LAUNCHES)
+    rhs_rows = []
+    for b in range(BATCH):
+        single = prob.solve(f=f_batch[b])
+        rel = float((us[b] - single.u).abs().max() / single.u.abs().max())
+        rhs_rows.append({"b": b, "iters": int(iters[b]), "single_iters": single.iters,
+                         "rel_diff": rel})
+
+    # the batched kernels against their plain versions and B single launches
+    rho_e = rho.contiguous()
+    coords = plan.coords
+    local_b = local_stiffness_p1(coords, rho_e)
+    err1, scale1 = max_err(local_b, local_stiffness_p1_ref(coords, rho_e))
+    table = plan.mat_reduce
+    vals_b = seg_reduce(local_b, table, batch=True)
+    err2, scale2 = max_err(vals_b, seg_reduce_ref(local_b, table.rows, table.n_rows, batch=True))
+    e = coords.shape[0]
+    bound = bounder(bw, fp64)
+    src = local_b.reshape(BATCH, -1)
+    b1_bytes = 8 * (coords.numel() + rho_e.numel() + local_b.numel())
+    b2_bytes = 4 * table.idx.numel() + 8 * BATCH * (table.n_src + table.n_rows)
+    b1 = {"shape": f"B={BATCH} tet E={e}", "max_abs_err": err1, "scale": scale1,
+          "ms": time_ms(lambda: local_stiffness_p1(coords, rho_e)),
+          "single_x_B_ms": time_ms(lambda: [local_stiffness_p1(coords, rho_e[b])
+                                            for b in range(BATCH)]),
+          "plain_ms": time_ms(lambda: local_stiffness_p1_ref(coords, rho_e)),
+          "library_ms": None, "bytes": b1_bytes,
+          "launches": asm_launches["local_stiffness_p1"]}
+    b1["bound_ms"], b1["bound_by"] = bound(b1_bytes, P1_FLOPS[3] * e * BATCH)
+    b2 = {"shape": f"B={BATCH} rows={table.n_rows} L={table.idx.shape[1]} src={table.n_src}",
+          "max_abs_err": err2, "scale": scale2,
+          "ms": time_ms(lambda: seg_reduce(local_b, table, batch=True)),
+          "single_x_B_ms": time_ms(lambda: [seg_reduce(local_b[b], table)
+                                            for b in range(BATCH)]),
+          "plain_ms": time_ms(lambda: seg_reduce_ref(local_b, table.rows, table.n_rows,
+                                                     batch=True)),
+          "library_ms": time_ms(lambda: torch.zeros((BATCH, table.n_rows), dtype=src.dtype,
+                                                    device="cuda").index_add_(1, table.rows,
+                                                                              src)),
+          "bytes": b2_bytes, "launches": asm_launches["seg_reduce"]}
+    b2["bound_ms"], b2["bound_by"] = bound(b2_bytes, BATCH * table.n_src)
+    out = {"phase": "batched", "n": MAIN_N, "dofs": prob.space.num_dofs, "B": BATCH,
+           "coeff_batch": {"assemble_s": assemble_s, "solve_s": solve_s,
+                           "launches": asm_launches, "profiled_kernel_calls": asm_calls,
+                           "rows": coeff_rows,
+                           "solve_coeff_batch_rel_diff": api_diff},
+           "rhs_batch": {"solve_s": batch_s, "launches": rhs_launches, "rows": rhs_rows},
+           "kernels": {"local_stiffness_p1": b1, "seg_reduce": b2}}
+    emit(out)
+    check(asm_launches["local_stiffness_p1"] == 1 and asm_launches["seg_reduce"] == 1,
+          f"batched: the batched assembly launched {asm_launches}")
+    check(asm_calls["local_stiffness_p1"] == 1 and asm_calls["seg_reduce"] == 1,
+          f"batched: the profiler saw {asm_calls} in the batched assembly")
+    check(rhs_launches["seg_reduce"] == 2 and rhs_launches["local_stiffness_p1"] == 1,
+          f"batched: solve_batch's assembly launched {rhs_launches}")
+    check(err1 <= 1e-12 * scale1 and err2 <= 1e-12 * scale2, f"batched kernels: {err1}, {err2}")
+    # the csr matvec sums with atomics on the card, so two runs of one solve
+    # agree to rounding, not bit for bit
+    check(api_diff <= 1e-10, f"batched: solve_coeff_batch differs from its parts by {api_diff}")
+    for row in coeff_rows + rhs_rows:
+        check(row["rel_diff"] <= 1e-10 and row["iters"] == row["single_iters"],
+              f"batched: instance against its single solve {row}")
+    check(all(r["vals_equal"] for r in coeff_rows), "batched: values differ from single")
+    return out
+
+
+def phase_quickstart():
+    """examples/quickstart_torch.py in a subprocess on the card, against the
+    numbers of examples/quickstart.py (the JAX package, on the CPU)."""
+    import os
+    import re
+
+    import repro_torch
+
+    script = ROOT / "examples" / "quickstart_torch.py"
+    env = {**os.environ, "PYTHONPATH": str(Path(repro_torch.__file__).parents[1])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          env=env, timeout=600)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"quickstart_torch.py failed:\n{proc.stderr[-3000:]}")
+    text = proc.stdout
+
+    def field(pattern):
+        m = re.search(pattern, text)
+        check(m is not None, f"quickstart_torch.py printed no match for {pattern!r}:\n{text}")
+        return m.group(1)
+
+    got = {"dofs": int(field(r"DoFs:\s+(\d+)")),
+           "iters": int(field(r"CG iterations:\s+(\d+)")),
+           "residual": float(field(r"relative residual:\s+(\S+)")),
+           "max_u": field(r"max u:\s+(\S+)"),
+           "batched_iters": [int(v) for v in field(r"iters=\[([\d, ]+)\]").split(",")],
+           "advection_max_u": field(r"advection-diffusion: .* max u (\S+)")}
+    emit({"phase": "quickstart", "got": got, "jax": JAX_QUICKSTART, "wall_s": wall_s})
+    ref = JAX_QUICKSTART
+    check(got["dofs"] == ref["dofs"] and abs(got["iters"] - ref["iters"]) <= 1,
+          f"quickstart: {got}")
+    check(got["residual"] <= 1e-10, f"quickstart: residual {got['residual']}")
+    check(got["max_u"] == ref["max_u"] and got["advection_max_u"] == ref["advection_max_u"],
+          f"quickstart: {got}")
+    check(len(got["batched_iters"]) == len(ref["batched_iters"])
+          and all(abs(a - b) <= 1 for a, b in zip(got["batched_iters"], ref["batched_iters"])),
+          f"quickstart: batched iterations {got['batched_iters']}")
+    return got
 
 
 def device_line() -> tuple[str, str]:
@@ -1091,7 +1639,9 @@ def device_line() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-ONLY_PHASES = ("host_cost", "ell_timing", "gradients")
+ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "gradients",
+               "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
+               "kernels_offsets64")
 
 
 def main(argv=None) -> int:
@@ -1119,7 +1669,8 @@ def main(argv=None) -> int:
     smi, name = device_line()
     bw, fp64 = card_peaks(name)
     t0 = time.perf_counter()
-    ptxas = {source: start_ptxas(source) for source in ("spmv_ell", "spmv_ell_stream")}
+    ptxas = {source: start_ptxas(source)
+             for source in ("local_assembly", "seg_reduce", "spmv_ell", "spmv_ell_stream")}
     try:
         kernels.build()
     finally:
@@ -1140,6 +1691,11 @@ def main(argv=None) -> int:
     rows = phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64)
     phase_second_entry()
     phase_gradients()
+    mixed = phase_mixed_bc()
+    elasticity = phase_elasticity(bw, fp64)
+    batched = phase_batched(prob, bw, fp64)
+    phase_quickstart()
+    phase_kernels_offsets64()
 
     # each kernel's launches on the path that runs it: B1-B4 on the main
     # path, B5 on the θ rollout, B6 in the n = 96 streaming solve
@@ -1147,11 +1703,15 @@ def main(argv=None) -> int:
              "spmv_ell_stream": ("transient", transient_launches),
              "galerkin_residual_ell_stream": ("stream_solve", stream_launches)}
     launches = {kname: counts[kname] for kname, (_, counts) in paths.items()}
+    # and on this slice's paths, each counted from 0 around its own run
+    later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
+             "batched": batched["coeff_batch"]["launches"]}
 
     print(smi)
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[kname], "path": paths[kname][0],
+         "launches_by_path": {path: counts[kname] for path, counts in later.items()},
          "max_abs_err": rows[kname]["max_abs_err"],
          "max_err": rows[kname]["max_abs_err"], "ms": rows[kname]["ms"],
          "plain_ms": rows[kname]["plain_ms"], "twin_ms": rows[kname]["plain_ms"],
@@ -1175,9 +1735,17 @@ def run_only(only) -> int:
     kernels.build()
     emit({"phase": "device", "nvidia_smi": smi, "device": name, "src": sys.path[0],
           "build_s": time.perf_counter() - t0})
-    phases = {"host_cost": phase_host_cost,
+    phases = {"cold_path": phase_cold_path,
+              "host_cost": phase_host_cost,
+              "assembly_cost": phase_assembly_cost,
               "ell_timing": lambda: phase_ell_timing(*card_peaks(name)),
-              "gradients": phase_gradients}
+              "gradients": phase_gradients,
+              "kernels_small": phase_kernels_small,
+              "mixed_bc": phase_mixed_bc,
+              "elasticity": lambda: phase_elasticity(*card_peaks(name)),
+              "batched": lambda: phase_batched(None, *card_peaks(name)),
+              "quickstart": phase_quickstart,
+              "kernels_offsets64": phase_kernels_offsets64}
     for phase in ONLY_PHASES:
         if phase in only:
             phases[phase]()

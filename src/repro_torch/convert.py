@@ -1,9 +1,10 @@
 """State carried across from the JAX package: numpy arrays → port objects.
 
 The JAX side exports its state with ``np.asarray`` (mesh ``points`` /
-``cells`` / ``cell_type``, coefficients, a CSR's ``vals`` / ``indptr`` /
-``indices`` / ``shape``); :func:`from_numpy` turns such a dict into the
-port's objects on a device, so both packages compute on the same inputs.
+``cells`` / ``cell_type``, coefficients, a CSR's or a BatchedCSR's
+``vals`` / ``indptr`` / ``indices`` / ``shape``, a MixedBCPoisson's facet
+sets); :func:`from_numpy` turns such a dict into the port's objects on a
+device, so both packages compute on the same inputs.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from .core.assembly import DTYPE, resolve_device
 from .core.mesh import Mesh
-from .core.sparse import CSR, CSRPattern
+from .core.sparse import CSR, BatchedCSR, CSRPattern
 
 __all__ = ["from_numpy"]
 
@@ -38,12 +39,17 @@ def from_numpy(state: dict, device=None) -> dict:
       data);
     * ``vals``, ``indptr``, ``indices``, ``shape`` (optionally
       ``row_of_nnz``, ``diag_pos``) → ``out["csr"]``, a
-      :class:`~repro_torch.core.CSR` with float64 values on ``device``;
+      :class:`~repro_torch.core.CSR` with float64 values on ``device``
+      (a :class:`~repro_torch.core.BatchedCSR` where ``vals`` is
+      ``(B, nnz)``);
       the same keys under a prefix (``mass.vals``, ``mass.indptr``, …,
       ``stiff.vals``, …) → ``out["mass"]``, ``out["stiff"]``, ….  CSRs
       with equal ``shape``, ``indptr`` and ``indices`` share one
       :class:`~repro_torch.core.CSRPattern`, so its ELL layout and
       streaming plans are built once (and ``axpy_csr`` takes them);
+    * keys ending in ``facets`` (a MixedBCPoisson's ``d_facets``,
+      ``n_facets``, ``r_facets``: ``(F, 2)`` vertex ids) → int64 numpy
+      arrays on the host, as the mesh (set-up data);
     * every other array or scalar (per-element ``(E,)``, per-quadrature
       ``(E, Q)`` or nodal ``(N,)`` coefficients, vectors) → a tensor on
       ``device`` under the same key: float64 for floating data, int64 for
@@ -71,7 +77,10 @@ def from_numpy(state: dict, device=None) -> dict:
                 break
         else:
             patterns.append(pattern)
-        out[pre or "csr"] = CSR(vals, pattern)
+        out[pre or "csr"] = (BatchedCSR if vals.dim() == 2 else CSR)(vals, pattern)
     for key, value in rest.items():
-        out[key] = _tensor(value, device)
+        if key.endswith("facets"):
+            out[key] = np.asarray(value, dtype=np.int64).reshape(-1, 2)
+        else:
+            out[key] = _tensor(value, device)
     return out

@@ -10,12 +10,15 @@ from .assembly import (  # noqa: F401
     AssemblyPlan,
     GalerkinAssembler,
     assemble,
+    assemble_batched,
     assemble_rhs,
+    assemble_rhs_batched,
     build_plan,
+    facet_context,
     geometry_context,
     resolve_device,
 )
-from .boundary import DirichletCondenser  # noqa: F401
+from .boundary import DirichletCondenser, FacetAssembler  # noqa: F401
 from .elements import ReferenceElement, get_element  # noqa: F401
 from .matvec import (  # noqa: F401
     MATVEC_BACKENDS,
@@ -49,7 +52,16 @@ from .solvers import (  # noqa: F401
     register_preconditioner,
     resolve_solver_spec,
     sparse_solve,
+    sparse_solve_batched,
 )
-from .sparse import CSR, ELL, CSRPattern, cached_diagonal, csr_to_ell, ell_layout  # noqa: F401
-from . import weakform  # noqa: F401
+from .sparse import (  # noqa: F401
+    CSR,
+    ELL,
+    BatchedCSR,
+    CSRPattern,
+    cached_diagonal,
+    csr_to_ell,
+    ell_layout,
+)
+from . import forms, weakform  # noqa: F401
 from .weakform import WeakForm  # noqa: F401

@@ -1,29 +1,37 @@
 """TensorGalerkin: Batch-Map + Sparse-Reduce assembly (the paper's core).
 
-The torch port of ``repro.core.assembly`` (single-instance assembly; the
-batched and sharded variants come in later slices):
+The torch port of ``repro.core.assembly`` (single-instance and batched
+assembly; the sharded variants come in a later slice):
 
 * :func:`geometry_context` — Stage-I geometry: batched Jacobians,
   closed-form inverses/determinants, push-forward gradients (Alg. 1,
-  lines 1–3).
+  lines 1–3); :func:`facet_context` the same for boundary facets, with the
+  surface measure √det(JᵀJ).
 * :class:`AssemblyPlan` — one (mesh topology × element × quadrature)
   signature: the quadrature/element tables, the host routing, and the
   device tables of both Reduces, staged once to the plan's device.
-* :func:`assemble` / :func:`assemble_rhs` — one Map, one Reduce.
+* :func:`assemble` / :func:`assemble_rhs` — one Map, one Reduce; facet
+  terms (``robin``/``neumann`` on a ``FacetAssembler``) reduce through
+  their facet routing and land in the volume values.
+* :func:`assemble_batched` / :func:`assemble_rhs_batched` — B instances
+  (coefficient sets or geometries) in one batched Reduce, and for P1
+  diffusion on shared coordinates one batched Map.
 * :class:`GalerkinAssembler` — the facade over a plan.
 
-The Map of a form that is exactly ``diffusion(rho)`` on a P1 simplex space
-runs the hand-written kernel :func:`repro_torch.kernels.local_stiffness_p1`
-(P1 gradients are constant, so every coefficient encoding reduces to one
-value per element); every other form, and any call where an input requires
-grad, runs the einsum Map.  Every Reduce runs
-:func:`repro_torch.kernels.seg_reduce`.  On a CUDA plan both are the CUDA
-kernels, so assembly on the card is deterministic; on a CPU plan they are
-the plain versions.
+The volume Map of a form whose volume part is exactly ``diffusion(rho)`` on
+a P1 simplex space runs the hand-written kernel
+:func:`repro_torch.kernels.local_stiffness_p1` (P1 gradients are constant,
+so every coefficient encoding reduces to one value per element), facet
+terms or not, and whether or not an input requires grad (the kernel's
+wrapper then records its autograd Function); every other form runs the
+einsum Map.  Every Reduce runs :func:`repro_torch.kernels.seg_reduce`.  On
+a CUDA plan both are the CUDA kernels, so assembly on the card is
+deterministic; on a CPU plan they are the plain versions.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -37,7 +45,7 @@ from . import forms, weakform
 from .elements import get_element
 from .mesh import FunctionSpace
 from .routing import build_matrix_routing, build_vector_routing
-from .sparse import CSR
+from .sparse import CSR, BatchedCSR
 
 __all__ = [
     "DTYPE",
@@ -45,7 +53,10 @@ __all__ = [
     "GalerkinAssembler",
     "assemble",
     "assemble_rhs",
+    "assemble_batched",
+    "assemble_rhs_batched",
     "build_plan",
+    "facet_context",
     "geometry_context",
     "reduce_matrix",
     "reduce_vector",
@@ -144,6 +155,18 @@ def geometry_context(coords, geo_phi, geo_grad, phi, gradhat, w,
                              scalar_cell_dofs=scalar_cell_dofs)
 
 
+def facet_context(coords, phi, gradhat, w, scalar_facet_dofs=None) -> forms.FormContext:
+    """Geometry for (d-1)-facets embedded in R^d: the surface measure
+    √det(JᵀJ) replaces |det J| (Neumann/Robin boundary terms route through
+    the same Map-Reduce pipeline — paper SM B.1.5)."""
+    j = torch.einsum("eai,qaj->eqij", coords, gradhat)     # (F, Q, d, d-1)
+    jtj = torch.einsum("eqij,eqik->eqjk", j, j)
+    measure = torch.sqrt(_det(jtj))
+    xq = torch.einsum("qa,eai->eqi", phi, coords)
+    return forms.FormContext(w=w, phi=phi, detj=measure, grad=None, xq=xq,
+                             scalar_cell_dofs=scalar_facet_dofs)
+
+
 # ---------------------------------------------------------------------------
 # The assembly plan
 # ---------------------------------------------------------------------------
@@ -215,6 +238,9 @@ class AssemblyPlan:
         )
         return CSR(vals, r.pattern)
 
+    def batched_csr(self, vals: torch.Tensor) -> BatchedCSR:
+        return BatchedCSR(vals, self.mat_routing.pattern)
+
 
 def build_plan(space: FunctionSpace, quad_order: int | None = None,
                device=None) -> AssemblyPlan:
@@ -241,94 +267,239 @@ def reduce_vector(f_local: torch.Tensor, plan: AssemblyPlan) -> torch.Tensor:
 # The Map
 # ---------------------------------------------------------------------------
 
-def _requires_grad(*xs) -> bool:
-    return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+def _terms(spec, leaves):
+    """``(kind, domain, coeffs, scale)`` per term, each slot's value taken
+    from ``leaves`` or from its static descriptor."""
+    leaf = iter(leaves)
+    out = []
+    for kind, domain, desc in spec:
+        *coeffs, scale = [next(leaf) if d == weakform.TRACED else d[1] for d in desc]
+        out.append((kind, domain, coeffs, scale))
+    return out
 
 
-def _p1_element_rho(plan: AssemblyPlan, coords, spec, leaves):
-    """For a form that is exactly ``scale * diffusion(rho)`` on a P1
+def _p1_element_rho(plan: AssemblyPlan, coords, volume):
+    """For a volume part that is exactly ``scale * diffusion(rho)`` on a P1
     simplex space, the per-element coefficient the P1 kernel takes:
     ``ρ_e = scale · Σ_q ŵ_q ρ_eq / |ref|`` (P1 gradients are constant, so
-    this is exact for every coefficient encoding).  ``None`` for any other
-    form, or when an input requires grad (the kernel has no gradient)."""
-    if len(spec) != 1 or spec[0][0] != "diffusion":
+    this is exact for every coefficient encoding; differentiable in ρ,
+    ``scale`` and ``coords``).  ``None`` for any other volume part."""
+    if len(volume) != 1 or volume[0][0] != "diffusion":
         return None
     if plan.element.name not in ("P1_tri", "P1_tet") or plan.value_size != 1:
         return None
-    if _requires_grad(coords, *leaves):
-        return None
-    leaf = iter(leaves)
-    rho, scale = [next(leaf) if d == weakform.TRACED else d[1] for d in spec[0][1]]
+    _, (rho,), scale = volume[0]
     e = coords.shape[0]
     if rho is None:
         rho_e = torch.ones(e, dtype=coords.dtype, device=coords.device)
+    elif isinstance(rho, (int, float)) or (isinstance(rho, torch.Tensor) and rho.dim() == 0):
+        rho_e = torch.as_tensor(rho, dtype=coords.dtype, device=coords.device).expand(e)
     elif isinstance(rho, torch.Tensor) and tuple(rho.shape) == (e,):
         rho_e = rho.to(device=coords.device)
-    elif not callable(rho) and torch.as_tensor(rho).dim() == 0:
-        rho_e = torch.full((e,), float(rho), dtype=coords.dtype, device=coords.device)
     else:
         rho_q = forms.eval_coefficient(rho, plan.quadrature_points(coords))
         rho_e = rho_q @ plan.w / plan.w.sum()
-    rho_e = (rho_e * scale).to(coords.dtype)
-    if rho_e.requires_grad:
-        return None
-    return rho_e.contiguous()
+    return (rho_e * scale).to(coords.dtype).contiguous()
 
 
-def _map_stage(plan: AssemblyPlan, coords, spec, leaves):
-    """One fused Map: every term of ``spec`` against one shared volume
-    context, local matrices/vectors summed term-wise."""
-    rho_e = _p1_element_rho(plan, coords, spec, leaves)
+def _volume_map(plan: AssemblyPlan, coords, volume):
+    """The fused volume Map: every volume term against one shared context,
+    local matrices/vectors summed term-wise (B1 for P1 diffusion)."""
+    rho_e = _p1_element_rho(plan, coords, volume)
     if rho_e is not None:
         return local_stiffness_p1(coords.contiguous(), rho_e)
     ctx = plan.context(coords)
-    leaf = iter(leaves)
     local_sum = None
-    for kind, desc in spec:
-        *coeffs, scale = [next(leaf) if d == weakform.TRACED else d[1] for d in desc]
+    for kind, coeffs, scale in volume:
         local = weakform.KERNELS[kind].fn(ctx, plan.value_size, *coeffs) * scale
         if local_sum is not None and local_sum.shape != local.shape:
             raise ValueError(
                 f"term '{kind}' local shape {tuple(local.shape)} does not match "
-                f"earlier terms {tuple(local_sum.shape)}"
+                f"earlier terms {tuple(local_sum.shape)} — scalar and vector-valued "
+                "kernels cannot be fused"
             )
         local_sum = local if local_sum is None else local_sum + local
     return local_sum
 
 
+def _map_stage(plan: AssemblyPlan, coords, spec, leaves):
+    """One fused Map: the volume terms against the shared volume context,
+    each facet term against its domain's facet context.  Returns the volume
+    local tensor (``None`` without volume terms) and ``{domain: local}``."""
+    volume, facet_sums = [], {}
+    for kind, domain, coeffs, scale in _terms(spec, leaves):
+        if domain is None:
+            volume.append((kind, coeffs, scale))
+            continue
+        local = weakform.KERNELS[kind].fn(domain.context(), plan.value_size, *coeffs) * scale
+        prev = facet_sums.get(domain)
+        facet_sums[domain] = local if prev is None else prev + local
+    return (_volume_map(plan, coords, volume) if volume else None), facet_sums
+
+
+def _check_facet_coords(spec, coords):
+    if coords is not None and any(domain is not None for _, domain, _ in spec):
+        # facet geometry comes from the FacetAssembler's construction-time
+        # coords; mixing it with overridden volume coords would give
+        # inconsistent values and no boundary coordinate gradients
+        raise NotImplementedError(
+            "assemble(form, coords=...) does not support facet terms: "
+            "boundary geometry is fixed at FacetAssembler construction"
+        )
+
+
+def _record(name, plan, spec, is_mat, num_cells, t0):
+    telemetry.record_assembly(
+        name if is_mat else name.replace("assemble", "assemble_rhs"),
+        num_dofs=plan.num_dofs, nnz=plan.nnz if is_mat else None, num_cells=num_cells,
+        form="+".join(kind for kind, _, _ in spec),
+        wall_us=(time.perf_counter() - t0) * 1e6,
+    )
+
+
 def _assemble_vals(plan: AssemblyPlan, form, arity: str, coords=None) -> torch.Tensor:
     spec, leaves = weakform.lower(form, arity)
+    _check_facet_coords(spec, coords)
     c = plan.coords if coords is None else coords
+    is_mat = arity == weakform.MATRIX
     t0 = time.perf_counter() if telemetry.is_enabled() else None
     with annotate("tg.map"):
-        local = _map_stage(plan, c, spec, leaves)
+        local, facet_sums = _map_stage(plan, c, spec, leaves)
     with annotate("tg.reduce"):
-        if arity == weakform.MATRIX:
-            out = reduce_matrix(local, plan)
+        if local is not None:
+            out = reduce_matrix(local, plan) if is_mat else reduce_vector(local, plan)
         else:
-            out = reduce_vector(local, plan)
+            # facet terms only: zeros in the facet locals' dtype, not the default
+            dtype = functools.reduce(torch.promote_types,
+                                     [loc.dtype for loc in facet_sums.values()])
+            out = torch.zeros(plan.nnz if is_mat else plan.num_dofs, dtype=dtype,
+                              device=plan.device)
+    with annotate("tg.facet_inject"):
+        for domain, loc in facet_sums.items():
+            if is_mat:
+                # unique positions: index_add is a deterministic, differentiable add
+                fvals = seg_reduce(loc, domain.mat_reduce)
+                out = out.index_add(0, domain.injection_index(plan.mat_routing),
+                                    fvals.to(out.dtype))
+            else:
+                out = out + seg_reduce(loc, domain.vec_reduce).to(out.dtype)
     if t0 is not None:
-        is_mat = arity == weakform.MATRIX
-        telemetry.record_assembly(
-            "assemble" if is_mat else "assemble_rhs",
-            num_dofs=plan.num_dofs, nnz=plan.nnz if is_mat else None,
-            num_cells=int(c.shape[0]), form="+".join(kind for kind, _ in spec),
-            wall_us=(time.perf_counter() - t0) * 1e6,
-        )
+        _record("assemble", plan, spec, is_mat, int(c.shape[0]), t0)
     return out
 
 
 def assemble(plan: AssemblyPlan, form, coords=None) -> CSR:
     """Assemble a bilinear :class:`~repro_torch.core.weakform.WeakForm`
-    into a CSR on the plan's pattern: one fused Map, one Reduce.
-    ``coords`` overrides the plan's element coordinates (shape
-    optimisation: gradients flow to it through the einsum Map)."""
+    into a CSR on the plan's pattern: one fused Map, one Reduce; facet terms
+    (``robin(alpha, on=facets)``) reduce through their facet routing and
+    are added into the volume values.  ``coords`` overrides the plan's
+    element coordinates (shape optimisation: gradients flow to it through
+    the Map)."""
     return plan.csr(_assemble_vals(plan, form, weakform.MATRIX, coords))
 
 
 def assemble_rhs(plan: AssemblyPlan, form, coords=None) -> torch.Tensor:
     """Assemble a linear form into a global ``(num_dofs,)`` vector."""
     return _assemble_vals(plan, form, weakform.VECTOR, coords)
+
+
+# -- batched multi-instance assembly -----------------------------------------
+
+def _lower_batched(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
+    """The reference's batching conventions: returns ``(spec, leaves,
+    coords, coords_batched, leaf_batched, B)`` with ``leaves`` the form's
+    own values where a slot is shared."""
+    spec, leaves0 = weakform.lower(form, arity)
+    if any(domain is not None for _, domain, _ in spec):
+        raise NotImplementedError(
+            "batched assembly supports volume terms only: facet geometry is "
+            "fixed at FacetAssembler construction and cannot vary per instance"
+        )
+    if leaves_batch is None:
+        leaves_batch = (None,) * len(leaves0)
+    elif not isinstance(leaves_batch, (tuple, list)):
+        # single-tensor convenience: batch the first value slot
+        leaves_batch = (leaves_batch,) + (None,) * (len(leaves0) - 1)
+    if len(leaves_batch) != len(leaves0):
+        raise ValueError(
+            f"leaves_batch has {len(leaves_batch)} slots but the form lowers "
+            f"to {len(leaves0)} traced leaves (per term: coefficients, then "
+            "the scale factor) — pass None for slots shared across the batch"
+        )
+
+    def dev(b):
+        return b if isinstance(b, torch.Tensor) else torch.as_tensor(b, device=plan.device)
+
+    leaves_batch = tuple(None if b is None else dev(b) for b in leaves_batch)
+    merged = tuple(b if b is not None else l0 for b, l0 in zip(leaves_batch, leaves0))
+    sizes = {int(b.shape[0]) for b in leaves_batch if b is not None}
+    if coords_batch is not None:
+        sizes.add(int(coords_batch.shape[0]))
+    if not sizes:
+        raise ValueError("nothing is batched: pass coords_batch and/or batched leaves")
+    if len(sizes) > 1:
+        raise ValueError(f"inconsistent batch sizes {sorted(sizes)}")
+    coords = plan.coords if coords_batch is None else coords_batch
+    batched = tuple(b is not None for b in leaves_batch)
+    return spec, merged, coords, coords_batch is not None, batched, sizes.pop()
+
+
+def _batched_vals(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
+    spec, leaves, coords, coords_batched, batched, n_inst = _lower_batched(
+        plan, form, arity, coords_batch, leaves_batch)
+    is_mat = arity == weakform.MATRIX
+    t0 = time.perf_counter() if telemetry.is_enabled() else None
+
+    def instance(b):
+        c = coords[b] if coords_batched else coords
+        lv = tuple(v[b] if is_b else v for v, is_b in zip(leaves, batched))
+        return c, [(k, cf, sc) for k, _, cf, sc in _terms(spec, lv)]
+
+    with annotate("tg.map"):
+        local = None
+        if not coords_batched:
+            # P1 diffusion on shared coordinates: one batched B1 launch
+            rhos = [_p1_element_rho(plan, *instance(b)) for b in range(n_inst)]
+            if n_inst and rhos[0] is not None:
+                local = local_stiffness_p1(coords.contiguous(), torch.stack(rhos))
+        if local is None:
+            local = torch.stack([_volume_map(plan, *instance(b)) for b in range(n_inst)])
+    with annotate("tg.reduce"):
+        out = seg_reduce(local, plan.mat_reduce if is_mat else plan.vec_reduce, batch=True)
+    if t0 is not None:
+        _record("assemble_batched", plan, spec, is_mat, plan.num_cells, t0)
+    return out
+
+
+def assemble_batched(plan: AssemblyPlan, form, coords_batch=None,
+                     leaves_batch=None) -> BatchedCSR:
+    """Assemble B problem instances on the plan's pattern: one batched
+    Reduce (B2 over ``(B, E·k²)``) and, for P1 diffusion on shared
+    coordinates, one batched Map (B1 over ``ρ (B, E)``); other forms map
+    instance by instance.
+
+    ``form`` is the template form (its own coefficient values fill any slot
+    not batched).  ``coords_batch (B, E, nv, d)`` batches the geometry;
+    ``leaves_batch`` batches coefficients/scales — a tuple aligned with the
+    form's value slots (per term: coefficients, then the scale factor),
+    each entry ``None`` (shared) or a tensor with a leading batch axis.  A
+    bare tensor batches the first slot::
+
+        kb = assemble_batched(plan, wf.diffusion(rho_b[0]),
+                              leaves_batch=(rho_b, None))   # (B, E) coeffs
+
+    Returns a :class:`~repro_torch.core.sparse.BatchedCSR` — the shared
+    pattern with ``(B, nnz)`` values (see
+    :func:`~repro_torch.core.solvers.sparse_solve_batched`)."""
+    return plan.batched_csr(
+        _batched_vals(plan, form, weakform.MATRIX, coords_batch, leaves_batch))
+
+
+def assemble_rhs_batched(plan: AssemblyPlan, form, coords_batch=None,
+                         leaves_batch=None) -> torch.Tensor:
+    """Batched linear-form assembly → ``(B, num_dofs)`` (see
+    :func:`assemble_batched` for the batching conventions)."""
+    return _batched_vals(plan, form, weakform.VECTOR, coords_batch, leaves_batch)
 
 
 class GalerkinAssembler:
@@ -358,3 +529,10 @@ class GalerkinAssembler:
     def assemble_rhs(self, form, coords=None) -> torch.Tensor:
         """Assemble a linear form into a global ``(num_dofs,)`` vector."""
         return assemble_rhs(self.plan, form, coords)
+
+    def assemble_batched(self, form, coords_batch=None, leaves_batch=None) -> BatchedCSR:
+        return assemble_batched(self.plan, form, coords_batch, leaves_batch)
+
+    def assemble_rhs_batched(self, form, coords_batch=None,
+                             leaves_batch=None) -> torch.Tensor:
+        return assemble_rhs_batched(self.plan, form, coords_batch, leaves_batch)

@@ -1,7 +1,6 @@
 """Weak-form library consumed by the Batch-Map stage.
 
-The torch port of ``repro.core.forms`` (the volume forms of this slice).
-Each form is a function ``form(ctx, **coeffs) -> K_local | F_local``
+The torch port of ``repro.core.forms``.  Each form is a function ``form(ctx, **coeffs) -> K_local | F_local``
 written as dense tensor contractions over a :class:`FormContext` — the
 batched geometry tensors of Alg. 1 (Eq. 7 / Eq. A.12–A.14 of the paper).
 Coefficients may be tensors that require grad: the contractions are
@@ -22,7 +21,9 @@ __all__ = [
     "anisotropic_diffusion",
     "advection",
     "mass",
+    "elasticity",
     "load",
+    "vector_load",
 ]
 
 
@@ -32,7 +33,7 @@ class FormContext:
 
     w: torch.Tensor                   # (Q,) reference weights
     phi: torch.Tensor                 # (Q, k) basis values
-    detj: torch.Tensor | None         # (E, Q) |det J|
+    detj: torch.Tensor | None         # (E, Q) |det J| (surface measure for facets)
     grad: torch.Tensor | None         # (E, Q, k, d) physical basis gradients 𝒢
     xq: torch.Tensor                  # (E, Q, d) physical quadrature points
     scalar_cell_dofs: torch.Tensor | None = None  # (E, k_scalar) for nodal coeffs
@@ -133,9 +134,28 @@ def advection(ctx: FormContext, beta) -> torch.Tensor:
 
 
 def mass(ctx: FormContext, c=None) -> torch.Tensor:
-    """∫ c φ_b φ_a."""
+    """∫ c φ_b φ_a (also the Robin boundary form on facet contexts)."""
     c_q = eval_coefficient(c, ctx)
     return torch.einsum("eq,qa,qb->eab", ctx.wdet * c_q, ctx.phi, ctx.phi)
+
+
+def elasticity(ctx: FormContext, lam, mu, scale=None) -> torch.Tensor:
+    """Isotropic linear elasticity ∫ σ(u):ε(v) with Lamé (λ, μ).
+
+    ``ctx.grad`` is the *scalar* basis gradient (E, Q, nv, d); the local
+    matrix is over interleaved vector DoFs (a·d + i), the FunctionSpace
+    ordering.  ``scale`` is an optional per-element factor (the SIMP
+    stiffness interpolation E(ρ))."""
+    g = ctx.grad
+    e, q, nv, d = g.shape
+    w = ctx.wdet * eval_coefficient(scale, ctx)
+    t_lam = torch.einsum("eq,eqai,eqbj->eaibj", w, g, g)
+    t_mu1 = torch.einsum("eq,eqaj,eqbi->eaibj", w, g, g)
+    gdotg = torch.einsum("eq,eqak,eqbk->eab", w, g, g)
+    eye = torch.eye(d, dtype=g.dtype, device=g.device)
+    t_mu2 = torch.einsum("eab,ij->eaibj", gdotg, eye)
+    k_local = lam * t_lam + mu * (t_mu1 + t_mu2)
+    return k_local.reshape(e, nv * d, nv * d)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +163,14 @@ def mass(ctx: FormContext, c=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def load(ctx: FormContext, f=None) -> torch.Tensor:
-    """∫ f φ_a — Eq. (A.11)."""
+    """∫ f φ_a — Eq. (A.11) (also the Neumann boundary load on facets)."""
     f_q = eval_coefficient(f, ctx)
     return torch.einsum("eq,qa->ea", ctx.wdet * f_q, ctx.phi)
+
+
+def vector_load(ctx: FormContext, f, d: int) -> torch.Tensor:
+    """∫ f · v for vector-valued v; ``f`` is a constant (d,) vector, a
+    callable returning (E, Q, d), or an (E, Q, d) tensor."""
+    f_q = eval_coefficient(f, ctx, vector_size=d)      # (E, Q, d)
+    e, nv = ctx.wdet.shape[0], ctx.phi.shape[1]
+    return torch.einsum("eq,eqi,qa->eai", ctx.wdet, f_q, ctx.phi).reshape(e, nv * d)

@@ -1,7 +1,7 @@
 """Iterative sparse solvers + the differentiable solve (paper Eq. 11).
 
-The torch port of ``repro.core.solvers`` (single-instance, assembled
-operators; the matrix-free and batched solves come in later slices):
+The torch port of ``repro.core.solvers`` (assembled operators; the
+matrix-free solves come in a later slice):
 
 * :func:`cg`, :func:`bicgstab` — preconditioned Krylov solvers with the
   update order and stopping rule of the JAX package, as Python loops.  The
@@ -15,6 +15,9 @@ operators; the matrix-free and batched solves come in later slices):
 * :func:`sparse_solve` — a ``torch.autograd.Function``: the backward pass
   solves the adjoint system ``Kᵀλ = ḡ`` with the same solver and returns
   the **sparse** cotangent ``∂/∂vals = −λ[rows]·x[cols]`` and ``∂/∂b = λ``.
+* :func:`sparse_solve_batched` — :func:`sparse_solve` over a
+  ``BatchedCSR`` family, one instance after another (each instance's
+  iterations are its own, as in the reference's vmapped solve).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..telemetry import annotate, events, span
-from .sparse import CSR, cached_diagonal
+from .sparse import CSR, BatchedCSR, cached_diagonal
 
 __all__ = [
     "cg",
@@ -37,6 +40,7 @@ __all__ = [
     "make_preconditioner",
     "jacobi_preconditioner",
     "sparse_solve",
+    "sparse_solve_batched",
     "SolveInfo",
 ]
 
@@ -297,11 +301,45 @@ def sparse_solve(a: CSR, b, spec: SolverSpec | None = None, *legacy,
     spec = resolve_solver_spec(spec, legacy, method=method, tol=tol,
                                atol=atol, maxiter=maxiter, precond=precond,
                                default=_SPARSE_DEFAULT, where="sparse_solve")
-    infos: list[SolveInfo] = []
     with span("sparse_solve", method=spec.method, backend="csr"):
-        x = _SparseSolve.apply(a.vals, b, a, spec, infos)
+        x, info = _solve_one(a, b, spec)
     if return_info:
-        events.record_solve("sparse_solve", infos[0], method=spec.method,
+        events.record_solve("sparse_solve", info, method=spec.method,
                             backend="csr", precond=spec.precond_name)
-        return x, infos[0]
+        return x, info
+    return x
+
+
+def _solve_one(a: CSR, b, spec: SolverSpec):
+    infos: list[SolveInfo] = []
+    x = _SparseSolve.apply(a.vals, b, a, spec, infos)
+    return x, infos[0]
+
+
+def sparse_solve_batched(a: BatchedCSR, b, spec: SolverSpec | None = None,
+                         return_info=False):
+    """``X_b = A_b⁻¹ b_b`` over a :class:`~repro_torch.core.sparse.BatchedCSR`
+    family: the differentiable :func:`sparse_solve` on each instance in
+    turn, each with its own iteration count (the reference vmaps the same
+    solve).  ``b`` is ``(B, n)`` per instance or ``(n,)`` shared; returns
+    ``(B, n)`` (plus a :class:`SolveInfo` of ``(B,)`` host tensors with
+    ``return_info=True``).  Gradients flow to ``a.vals`` and ``b``."""
+    spec = resolve_solver_spec(spec, default=_SPARSE_DEFAULT,
+                               where="sparse_solve_batched")
+    xs, infos = [], []
+    with span("sparse_solve_batched", method=spec.method, backend="csr"):
+        for i in range(a.batch):
+            bi = b[i] if b.dim() == 2 else b
+            x, info = _solve_one(a[i], bi, spec)
+            xs.append(x)
+            infos.append(info)
+    info = SolveInfo(torch.tensor([i.iters for i in infos]),
+                     torch.tensor([i.residual for i in infos], dtype=torch.float64),
+                     torch.tensor([i.converged for i in infos]))
+    x = torch.stack(xs) if xs else torch.zeros((0, a.shape[0]), dtype=a.vals.dtype,
+                                               device=a.vals.device)
+    if return_info:
+        events.record_solve("sparse_solve_batched", info, method=spec.method,
+                            backend="csr", precond=spec.precond_name)
+        return x, info
     return x

@@ -15,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["CSR", "CSRPattern", "ELL", "cached_diagonal", "csr_to_ell", "ell_layout"]
+__all__ = ["BatchedCSR", "CSR", "CSRPattern", "ELL", "cached_diagonal", "csr_to_ell",
+           "ell_layout"]
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -160,6 +161,86 @@ class CSR:
             (self.vals.detach().cpu().numpy(), self.indices, self.indptr),
             shape=self.shape,
         )
+
+
+@dataclasses.dataclass
+class BatchedCSR:
+    """B same-pattern sparse operators: one shared :class:`CSRPattern` and
+    ``(B, nnz)`` values — what ``assemble_batched`` produces over a family
+    of coefficient sets or geometries.  The pattern accessors are
+    :class:`CSR`'s, so condensers and other transforms of the values apply
+    unchanged (masks broadcast over the batch axis); indexing gives one
+    instance as a :class:`CSR`."""
+
+    vals: torch.Tensor           # (B, nnz)
+    pattern: CSRPattern
+
+    indptr = CSR.indptr
+    indices = CSR.indices
+    row_of_nnz = CSR.row_of_nnz
+    diag_pos = CSR.diag_pos
+    shape = CSR.shape
+    nnz = CSR.nnz
+    _dev = CSR._dev
+
+    @classmethod
+    def stack(cls, csrs) -> "BatchedCSR":
+        """Stack same-pattern :class:`CSR` instances along a new batch axis.
+        Patterns must match in content, not only in nnz: two meshes can
+        share an nnz by coincidence."""
+        csrs = list(csrs)
+        first = csrs[0]
+        for c in csrs[1:]:
+            same = c.shape == first.shape and (
+                c.pattern is first.pattern
+                or (np.array_equal(c.indices, first.indices)
+                    and np.array_equal(c.indptr, first.indptr)))
+            if not same:
+                raise ValueError(
+                    "BatchedCSR.stack: CSR sparsity patterns differ — all instances "
+                    "must share one (mesh topology × space) pattern")
+        return cls(torch.stack([c.vals for c in csrs]), first.pattern)
+
+    @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    def with_vals(self, vals: torch.Tensor) -> "BatchedCSR":
+        return BatchedCSR(vals, self.pattern)
+
+    def as_csr(self) -> CSR:
+        """Reinterpret as a single :class:`CSR` on this pattern — valid when
+        ``vals`` is one instance's ``(nnz,)`` values."""
+        return CSR(self.vals, self.pattern)
+
+    def __getitem__(self, b):
+        """Integer index → one instance as a :class:`CSR`; slice → the
+        sub-family as a :class:`BatchedCSR`."""
+        if isinstance(b, (int, np.integer)):
+            return CSR(self.vals[b], self.pattern)
+        if isinstance(b, slice):
+            return BatchedCSR(self.vals[b], self.pattern)
+        raise TypeError(f"BatchedCSR indices must be int or slice, got {type(b).__name__}")
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Y_b = A_b @ x_b for ``x (B, n)``; an ``(n,)`` x is shared by every
+        instance."""
+        xb = x[..., self._dev("indices")]
+        contrib = self.vals * (xb if x.dim() == 2 else xb[None])
+        out = torch.zeros((self.batch, self.shape[0]), dtype=contrib.dtype,
+                          device=contrib.device)
+        return out.index_add(1, self._dev("row_of_nnz"), contrib)
+
+    def diagonal(self) -> torch.Tensor:
+        dp = self._dev("diag_pos")
+        zero = torch.zeros((), dtype=self.vals.dtype, device=self.vals.device)
+        return torch.where(dp >= 0, self.vals[:, dp.clamp(min=0)], zero)
+
+    def to_dense(self) -> torch.Tensor:
+        out = torch.zeros((self.batch, *self.shape), dtype=self.vals.dtype,
+                          device=self.vals.device)
+        out[:, self._dev("row_of_nnz"), self._dev("indices")] = self.vals
+        return out
 
 
 @dataclasses.dataclass

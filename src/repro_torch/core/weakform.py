@@ -1,20 +1,24 @@
 """Composable weak-form API: declarative terms over the Map-Reduce pipeline.
 
-The torch port of ``repro.core.weakform``, volume terms only.  A
-:class:`WeakForm` is a sum of :class:`Term` objects — each a (kernel,
-coefficient-spec) pair — closed under ``+``, ``-`` and scalar scaling::
+The torch port of ``repro.core.weakform``.  A :class:`WeakForm` is a sum
+of :class:`Term` objects — each a (kernel, coefficient-spec) pair tagged
+with an integration domain (volume cells by default, a
+:class:`~repro_torch.core.boundary.FacetAssembler` for boundary terms) —
+closed under ``+``, ``-`` and scalar scaling::
 
     from repro_torch.core import weakform as wf
 
-    form = wf.diffusion(rho) + wf.advection(beta) + wf.mass(c)
+    form = wf.diffusion(rho) + wf.advection(beta) + wf.mass(c) \
+         + wf.robin(alpha, on=facets)
     K = asm.assemble(form)                    # ONE fused Map, ONE Reduce
-    F = asm.assemble_rhs(wf.source(f))
+    F = asm.assemble_rhs(wf.source(f) + wf.neumann(g, on=facets))
 
-:func:`lower` splits a form into a static signature (term kinds and which
-coefficient slots are values or static ``None``/callables) and the flat
-tuple of coefficient values, as the JAX package does for its jit cache.
-Boundary terms (``robin``/``neumann``) need the facet assembler, which a
-later slice of the port brings.
+Volume terms share one Map and one Reduce; facet terms reduce through
+their domain's facet routing and land in the volume CSR pattern through a
+precomputed nnz injection.  :func:`lower` splits a form into a static
+signature (term kinds, domains, and which coefficient slots are values or
+static ``None``/callables) and the flat tuple of coefficient values, as
+the JAX package does for its jit cache.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ __all__ = [
     "anisotropic_diffusion",
     "advection",
     "mass",
+    "elasticity",
     "robin",
     "source",
     "neumann",
@@ -52,6 +57,10 @@ class _Kernel:
     fn: Callable
 
 
+def _source_kernel(ctx, vs, f):
+    return forms.load(ctx, f) if vs == 1 else forms.vector_load(ctx, f, vs)
+
+
 KERNELS: dict[str, _Kernel] = {
     "diffusion": _Kernel(MATRIX, lambda ctx, vs, rho: forms.diffusion(ctx, rho)),
     "anisotropic_diffusion": _Kernel(
@@ -59,22 +68,22 @@ KERNELS: dict[str, _Kernel] = {
     ),
     "advection": _Kernel(MATRIX, lambda ctx, vs, beta: forms.advection(ctx, beta)),
     "mass": _Kernel(MATRIX, lambda ctx, vs, c: forms.mass(ctx, c)),
-    "source": _Kernel(VECTOR, lambda ctx, vs, f: forms.load(ctx, f)),
+    "elasticity": _Kernel(
+        MATRIX, lambda ctx, vs, lam, mu, scale: forms.elasticity(ctx, lam, mu, scale=scale)
+    ),
+    "source": _Kernel(VECTOR, _source_kernel),
 }
-
-_FACETS_LATER = (
-    "boundary terms need the FacetAssembler, which the MixedBCPoisson slice of "
-    "the torch port brings (ROADMAP queue A); this slice assembles volume terms only"
-)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Term:
-    """One (kernel, coefficient-spec) pair over the mesh cells, times a
-    scalar ``scale``."""
+    """One (kernel, coefficient-spec) pair on one integration domain, times
+    a scalar ``scale``: ``domain is None`` integrates over the mesh cells, a
+    ``FacetAssembler`` over its boundary facets."""
 
     kind: str
     coeffs: tuple
+    domain: object = None
     scale: object = 1.0
 
     @property
@@ -130,7 +139,7 @@ def _as_form(obj) -> WeakForm:
 def lower(form, arity: str):
     """Split a form into its static signature and its coefficient values.
 
-    Returns ``(spec, leaves)``: ``spec`` is a tuple of ``(kind,
+    Returns ``(spec, leaves)``: ``spec`` is a tuple of ``(kind, domain,
     coeff_descriptors)`` per term — each slot (coefficients + trailing
     scale) marked :data:`TRACED` or ``("static", obj)`` for ``None`` and
     callables — and ``leaves`` the flat tuple of values in slot order.
@@ -155,7 +164,7 @@ def lower(form, arity: str):
             else:
                 desc.append(TRACED)
                 leaves.append(c)
-        spec.append((t.kind, tuple(desc)))
+        spec.append((t.kind, t.domain, tuple(desc)))
     return tuple(spec), tuple(leaves)
 
 
@@ -185,16 +194,27 @@ def mass(c=None) -> WeakForm:
     return WeakForm((Term("mass", (c,)),))
 
 
+def elasticity(lam, mu, scale=None) -> WeakForm:
+    """∫ σ(u):ε(v) with Lamé (λ, μ); ``scale`` is the per-element SIMP
+    interpolation E(ρ)."""
+    return WeakForm((Term("elasticity", (lam, mu, scale)),))
+
+
+def robin(alpha=None, *, on) -> WeakForm:
+    """∫_Γ α u v over the facets of ``on`` (a FacetAssembler) — reduces into
+    the volume CSR pattern."""
+    if on is None:
+        raise ValueError("robin(...) needs on=<FacetAssembler>")
+    return WeakForm((Term("mass", (alpha,), domain=on),))
+
+
 def source(f=None) -> WeakForm:
-    """∫ f v — volume load."""
+    """∫ f v — volume load (vector-valued on vector spaces)."""
     return WeakForm((Term("source", (f,)),))
 
 
-def robin(alpha=None, *, on=None) -> WeakForm:
-    """∫_Γ α u v over boundary facets — not in this slice of the port."""
-    raise NotImplementedError(f"robin(...): {_FACETS_LATER}")
-
-
-def neumann(g=None, *, on=None) -> WeakForm:
-    """∫_Γ g v over boundary facets — not in this slice of the port."""
-    raise NotImplementedError(f"neumann(...): {_FACETS_LATER}")
+def neumann(g=None, *, on) -> WeakForm:
+    """∫_Γ g v over the facets of ``on`` — boundary load."""
+    if on is None:
+        raise ValueError("neumann(...) needs on=<FacetAssembler>")
+    return WeakForm((Term("source", (g,), domain=on),))

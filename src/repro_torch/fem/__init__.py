@@ -1,1 +1,6 @@
-from .tensormesh import AdvectionDiffusionProblem, PoissonProblem  # noqa: F401
+from .tensormesh import (  # noqa: F401
+    AdvectionDiffusionProblem,
+    ElasticityProblem,
+    MixedBCPoisson,
+    PoissonProblem,
+)

@@ -16,6 +16,13 @@
 // issue strided accesses; each block therefore stages its elements' inputs
 // and outputs through shared memory and moves them with coalesced loads and
 // stores.  The ragged tail is masked, not padded with identity simplices.
+//
+// Batch: rho (B, E) on shared coordinates gives out (B, E, k, k) in one
+// launch.  Block i serves instance b = i % B of element block i / B, so the
+// B blocks that share an element block run next to each other and the
+// later ones read its coordinates from L2; every offset into rho and out is
+// 64-bit (B * E * k * k may pass 2^31).  A single instance takes the
+// instantiation without the batch index, the kernel of the 3D main path.
 #include "tg_common.cuh"
 
 namespace {
@@ -73,14 +80,19 @@ __device__ __forceinline__ void p1_tet(const T* c, T rho, T* out) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBatched>
 __global__ void __launch_bounds__(kBlock)
 p1_stiffness_kernel(const T* __restrict__ coords, const T* __restrict__ rho,
-                    T* __restrict__ out, long long n_elem) {
+                    T* __restrict__ out, long long n_elem, int batch) {
   constexpr int K = D + 1, KD = K * D, KK = K * K;
   __shared__ T s_in[kBlock * KD];
   __shared__ T s_out[kBlock * KK];
-  const long long e0 = static_cast<long long>(blockIdx.x) * kBlock;
+  long long b = 0, block = blockIdx.x;
+  if constexpr (kBatched) {
+    b = blockIdx.x % batch;
+    block = blockIdx.x / batch;
+  }
+  const long long e0 = block * kBlock;
   const long long left = n_elem - e0;
   const int n = left < kBlock ? static_cast<int>(left) : kBlock;
 
@@ -88,7 +100,7 @@ p1_stiffness_kernel(const T* __restrict__ coords, const T* __restrict__ rho,
   for (int i = threadIdx.x; i < n * KD; i += kBlock) s_in[i] = src[i];
   __syncthreads();
   if (threadIdx.x < n) {
-    const T r = rho[e0 + threadIdx.x];
+    const T r = rho[b * n_elem + e0 + threadIdx.x];
     if constexpr (D == 2) {
       p1_tri<T>(s_in + threadIdx.x * KD, r, s_out + threadIdx.x * KK);
     } else {
@@ -96,23 +108,28 @@ p1_stiffness_kernel(const T* __restrict__ coords, const T* __restrict__ rho,
     }
   }
   __syncthreads();
-  T* dst = out + e0 * KK;
+  T* dst = out + (b * n_elem + e0) * KK;
   for (int i = threadIdx.x; i < n * KK; i += kBlock) dst[i] = s_out[i];
 }
 
 template <typename T>
 int launch(const void* coords, const void* rho, void* out, long long n_elem, long long dim,
-           void* stream) {
-  if (n_elem <= 0) return 0;
-  const unsigned blocks = tg_blocks(n_elem, kBlock);
+           long long batch, void* stream) {
+  if (n_elem <= 0 || batch <= 0) return 0;
+  const long long grid = static_cast<long long>(tg_blocks(n_elem, kBlock)) * batch;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned blocks = static_cast<unsigned>(grid);
+  const int nb = static_cast<int>(batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* c = static_cast<const T*>(coords);
   const T* r = static_cast<const T*>(rho);
   T* o = static_cast<T*>(out);
   if (dim == 2) {
-    p1_stiffness_kernel<T, 2><<<blocks, kBlock, 0, s>>>(c, r, o, n_elem);
+    auto kernel = nb == 1 ? p1_stiffness_kernel<T, 2, false> : p1_stiffness_kernel<T, 2, true>;
+    kernel<<<blocks, kBlock, 0, s>>>(c, r, o, n_elem, nb);
   } else if (dim == 3) {
-    p1_stiffness_kernel<T, 3><<<blocks, kBlock, 0, s>>>(c, r, o, n_elem);
+    auto kernel = nb == 1 ? p1_stiffness_kernel<T, 3, false> : p1_stiffness_kernel<T, 3, true>;
+    kernel<<<blocks, kBlock, 0, s>>>(c, r, o, n_elem, nb);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -122,11 +139,13 @@ int launch(const void* coords, const void* rho, void* out, long long n_elem, lon
 }  // namespace
 
 TG_EXPORT int tg_local_stiffness_p1_f32(const void* coords, const void* rho, void* out,
-                                        long long n_elem, long long dim, void* stream) {
-  return launch<float>(coords, rho, out, n_elem, dim, stream);
+                                        long long n_elem, long long dim, long long batch,
+                                        void* stream) {
+  return launch<float>(coords, rho, out, n_elem, dim, batch, stream);
 }
 
 TG_EXPORT int tg_local_stiffness_p1_f64(const void* coords, const void* rho, void* out,
-                                        long long n_elem, long long dim, void* stream) {
-  return launch<double>(coords, rho, out, n_elem, dim, stream);
+                                        long long n_elem, long long dim, long long batch,
+                                        void* stream) {
+  return launch<double>(coords, rho, out, n_elem, dim, batch, stream);
 }

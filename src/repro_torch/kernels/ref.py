@@ -18,7 +18,8 @@ __all__ = [
 
 def local_stiffness_p1_ref(coords: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     """Batched P1 simplex stiffness: coords (E, k, d) with k = d+1,
-    rho (E,) → (E, k, k).  K_e = |e| ρ_e G Gᵀ with constant gradients."""
+    rho (E,) → (E, k, k), or rho (B, E) → (B, E, k, k) on the shared
+    coordinates.  K_e = |e| ρ_e G Gᵀ with constant gradients."""
     e, k, d = coords.shape
     assert k == d + 1
     jac = (coords[:, 1:, :] - coords[:, :1, :]).transpose(1, 2)  # J columns = edges
@@ -30,16 +31,18 @@ def local_stiffness_p1_ref(coords: torch.Tensor, rho: torch.Tensor) -> torch.Ten
     )                                                              # (k, d)
     g = torch.einsum("eji,aj->eai", jinv, gradhat)                 # J^{-T} ĝ
     w = 1.0 / {1: 1.0, 2: 2.0, 3: 6.0}[d]                          # reference simplex volume
-    scale = w * det.abs() * rho                                    # (E,)
-    return torch.einsum("e,eai,ebi->eab", scale, g, g)
+    scale = w * det.abs() * rho                                    # ([B,] E)
+    return torch.einsum("...e,eai,ebi->...eab", scale, g, g)
 
 
-def seg_reduce_ref(src: torch.Tensor, rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+def seg_reduce_ref(src: torch.Tensor, rows: torch.Tensor, n_rows: int,
+                   batch: bool = False) -> torch.Tensor:
     """Sparse-Reduce: ``out[rows[i]] += src.flat[i]`` (``rows`` is the
-    routing's unsorted segment id of each local slot)."""
-    v = src.reshape(-1)
-    out = torch.zeros(n_rows, dtype=v.dtype, device=v.device)
-    return out.index_add_(0, rows, v)
+    routing's unsorted segment id of each local slot); with ``batch``,
+    ``src (B, ...)`` reduces instance by instance onto ``(B, n_rows)``."""
+    v = src.reshape(src.shape[0], -1) if batch else src.reshape(-1)
+    out = torch.zeros((*v.shape[:-1], n_rows), dtype=v.dtype, device=v.device)
+    return out.index_add_(-1, rows, v)
 
 
 def spmv_ell_ref(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@ padded ``(rows, L)`` int32 table whose pad slots hold a sentinel ``n_src``
 deterministic gather-sum::
 
     out[n] = Σ_l  vec(K_local)[idx[n, l]]      (sentinel slots skipped)
+
+With ``batch=True`` the source carries a leading batch axis, ``(B, ...)``
+with ``n_src`` values per instance, and one launch reduces every instance
+on the shared table onto ``(B, rows)``.
 """
 
 from __future__ import annotations
@@ -85,19 +89,22 @@ class ReduceTable:
 
 
 def _seg_reduce(src: torch.Tensor, table: ReduceTable) -> torch.Tensor:
+    """``src`` is ``(n_src,)`` or ``(B, n_src)``."""
+    batched = src.dim() == 2
     if src.device.type == "cpu":
-        return seg_reduce_ref(src, table.rows, table.n_rows)
+        return seg_reduce_ref(src, table.rows, table.n_rows, batch=batched)
     dtype = _cuda.check_operands("seg_reduce", {"local_vals": src, "idx": table.idx})
-    out = torch.empty(table.n_rows, dtype=dtype, device=src.device)
-    if table.n_rows:
+    out = torch.empty((*src.shape[:-1], table.n_rows), dtype=dtype, device=src.device)
+    if out.numel():
         _cuda.launch("seg_reduce", "seg_reduce", _cuda.symbol("tg_seg_reduce", dtype),
-                     src, table.idx, out, table.n_rows, table.idx.shape[1], table.n_src)
+                     src, table.idx, out, table.n_rows, table.idx.shape[1], table.n_src,
+                     src.shape[0] if batched else 1)
     return out
 
 
 class _SegReduce(torch.autograd.Function):
     """The Reduce with its adjoint: the gradient of a local slot is the
-    output gradient of its row (a gather)."""
+    output gradient of its row (a gather), instance by instance."""
 
     @staticmethod
     def forward(ctx, src, table):
@@ -106,20 +113,22 @@ class _SegReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return grad_out[ctx.table.rows], None
+        return grad_out[..., ctx.table.rows], None
 
 
-def seg_reduce(local_vals: torch.Tensor, table: ReduceTable) -> torch.Tensor:
-    """local_vals (E, ka, kb), (E, k) or flat → (table.n_rows,) global values.
+def seg_reduce(local_vals: torch.Tensor, table: ReduceTable, batch: bool = False) -> torch.Tensor:
+    """local_vals (E, ka, kb), (E, k) or flat → (table.n_rows,) global
+    values; with ``batch``, local_vals (B, ...) → (B, table.n_rows).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Differentiable with respect to ``local_vals``."""
-    if local_vals.numel() != table.n_src:
-        raise ValueError(f"seg_reduce: {local_vals.numel()} local values for a table "
-                         f"over {table.n_src} slots")
+    n_inst = (local_vals.shape[0] if local_vals.dim() else -1) if batch else 1
+    if local_vals.numel() != n_inst * table.n_src:
+        raise ValueError(f"seg_reduce: {tuple(local_vals.shape)} local values for a table "
+                         f"over {table.n_src} slots (batch={batch})")
     if local_vals.device != table.device:
         raise ValueError(f"seg_reduce: values on {local_vals.device}, table on {table.device}")
-    src = local_vals.reshape(-1)
+    src = local_vals.reshape(n_inst, table.n_src) if batch else local_vals.reshape(-1)
     if src.requires_grad:
         return _SegReduce.apply(src, table)
     return _seg_reduce(src, table)

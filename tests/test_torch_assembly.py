@@ -138,9 +138,14 @@ def test_kernel_map_and_reduce_equal_assembler():
     k_local = batch_map_stiffness(asm_t.coords, torch.as_tensor(rho))
     got = seg_reduce(k_local, asm_t.plan.mat_reduce)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-12, rtol=0)
-    # the einsum Map (taken when an input requires grad) gives the same values
-    einsum = asm_t.assemble(twf.diffusion(torch.as_tensor(rho).requires_grad_()))
-    np.testing.assert_allclose(einsum.vals.detach().numpy(), got.numpy(), atol=1e-12, rtol=0)
+    # the einsum Map gives the same values
+    einsum = seg_reduce(tc.forms.diffusion(asm_t.context(), torch.as_tensor(rho)),
+                        asm_t.plan.mat_reduce)
+    np.testing.assert_allclose(einsum.numpy(), got.numpy(), atol=1e-12, rtol=0)
+    # and so does the kernel's autograd Function, taken when ρ requires grad
+    graph = asm_t.assemble(twf.diffusion(torch.as_tensor(rho).requires_grad_()))
+    assert graph.vals.requires_grad
+    np.testing.assert_allclose(graph.vals.detach().numpy(), got.numpy(), atol=1e-12, rtol=0)
 
 
 def test_map_takes_the_p1_kernel_only_for_plain_p1_diffusion(monkeypatch):
@@ -159,10 +164,12 @@ def test_map_takes_the_p1_kernel_only_for_plain_p1_diffusion(monkeypatch):
     assert len(calls) == 2
     asm_t.assemble(twf.mass())
     asm_t.assemble(twf.diffusion() + twf.mass())
-    asm_t.assemble(twf.diffusion(torch.ones(e, dtype=torch.float64, requires_grad=True)))
     _, asm_p2 = _asms("P2_tri")
     asm_p2.assemble(twf.diffusion())
     assert len(calls) == 2
+    # an input that requires grad keeps the kernel (its autograd Function)
+    asm_t.assemble(twf.diffusion(torch.ones(e, dtype=torch.float64, requires_grad=True)))
+    assert len(calls) == 3
 
 
 def test_gradients_through_assembly_match_jax():
@@ -211,14 +218,20 @@ def test_from_numpy_carries_state_across():
 def test_weakform_algebra_and_errors():
     form = twf.diffusion(2.0) + 0.5 * twf.mass() - twf.advection(torch.ones(2))
     spec, leaves = twf.lower(form, twf.MATRIX)
-    assert [k for k, _ in spec] == ["diffusion", "mass", "advection"]
+    assert [k for k, _, _ in spec] == ["diffusion", "mass", "advection"]
+    assert all(domain is None for _, domain, _ in spec)
     assert len(leaves) == 5  # 2.0, scale 1.0 | scale 0.5 | beta, scale -1.0
     assert sum([twf.mass(), twf.mass()]).terms[0].kind == "mass"
     with pytest.raises(TypeError):
         twf.lower(twf.source(1.0), twf.MATRIX)
     with pytest.raises(ValueError):
         twf.lower(twf.WeakForm(), twf.MATRIX)
-    with pytest.raises(NotImplementedError, match="FacetAssembler"):
-        twf.robin(1.0, on=object())
-    with pytest.raises(NotImplementedError, match="FacetAssembler"):
-        twf.neumann(1.0, on=object())
+    with pytest.raises(ValueError, match="FacetAssembler"):
+        twf.robin(1.0, on=None)
+    with pytest.raises(ValueError, match="FacetAssembler"):
+        twf.neumann(1.0, on=None)
+    domain = object()
+    (kind, on, _), = twf.lower(twf.robin(1.0, on=domain), twf.MATRIX)[0]
+    assert (kind, on) == ("mass", domain)
+    (kind, on, _), = twf.lower(twf.neumann(1.0, on=domain), twf.VECTOR)[0]
+    assert (kind, on) == ("source", domain)

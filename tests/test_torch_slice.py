@@ -74,23 +74,29 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """The port's modules, and a run of examples/quickstart_torch.py on the
+    CPU, load neither JAX nor the JAX package."""
     code = (
-        "import sys\n"
+        "import runpy, sys\n"
         "import repro_torch, repro_torch.core, repro_torch.fem, repro_torch.kernels\n"
         "import repro_torch.telemetry, repro_torch.convert\n"
+        "sys.argv = ['quickstart_torch.py', '--device', 'cpu']\n"
+        f"runpy.run_path({str(ROOT / 'examples' / 'quickstart_torch.py')!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(','.join(bad))\n"
+        "print('loaded:', ','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          timeout=120)
-    assert out.stdout.strip() == ""
+    assert "batched solve:" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "loaded:"
 
 
 def test_no_jax_import_lines_in_the_port():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|repro)\b(?!_)", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
     assert offenders == []
