@@ -13,9 +13,11 @@ Phases, one JSON line each:
    spills for each kernel of each source;
 2. kernels_small — every kernel against its plain PyTorch version on the
    card at ragged shapes, float32 and float64 (B1/B2 also batched, B ∈
-   {1, 3}; B3/B4 at widths 1-45 with N
-   not a multiple of 32 and operands one element off 16-byte alignment;
-   the streaming kernels at the
+   {1, 3}; B3/B4 at widths 1-129, each side of every boundary between
+   their three kernels, with N not a multiple of 32 and operands one
+   element off 16-byte alignment, and the launch shape each width takes
+   against ``ell_launch_shape``; B3 and B4 bit-equal to B5 and B6 at L =
+   33, 45, 64 and 81; the streaming kernels at the
    JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
    each path of the kernel's schedule at every depth the wrapper accepts:
    decreasing window starts, a step past the ring, odd window starts with
@@ -65,7 +67,8 @@ Phases, one JSON line each:
 12. elasticity — ``ElasticityProblem(hollow_cube_tet(48))`` (316,446
    DoFs, ELL width 45): BiCGSTAB on ``ell``, a scipy residual, the six
    rigid-body modes through B3 on the un-condensed K, the JAX package's
-   numbers at n = 4 and 8, and B3/B4's times at L = 45;
+   numbers at n = 4 and 8, and B3/B4's times at L = 45 and on grid
+   operators on each side of the wide-tile kernel's limits;
 13. batched — at n = 64, ``solve_coeff_batch`` over 8 coefficient fields
    (one batched B1 and one batched B2 launch) and ``solve_batch`` over 8
    Gaussian right-hand sides, each instance against its single solve; the
@@ -82,7 +85,9 @@ exits non-zero; with no CUDA device it exits 2 and prints no result.
 
 ``--only`` runs the named phases alone, to hold a change against its
 parent on one card: ``gradients``, ``ell_timing`` (B3/B4 at the n = 64 and
-n = 96 stiffness, built for the phase) and ``host_cost`` (the ELL wrappers'
+n = 96 stiffness, the n = 48 elasticity operator (L = 45), the mixed-BC
+operator (L = 8) and grid operators on each side of the wide-tile
+kernel's limits, built for the phase) and ``host_cost`` (the ELL wrappers'
 host time per call and the n = 64 CG loop's wall time per iteration),
 ``assembly_cost`` (the wall time of a warm n = 64 assembly) and
 ``cold_path`` (reference, main_path and transient in a fresh process: the
@@ -99,6 +104,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -170,8 +176,6 @@ def start_ptxas(source: str):
 def ptxas_report(proc) -> list:
     """Registers, static shared memory and spills of each kernel entry in
     ``ptxas -v`` output (templates shown as kernel<type,G>)."""
-    import re
-
     out, _ = proc.communicate()
     check(proc.returncode == 0, f"ptxas -v build failed:\n{out[-3000:]}")
     rows, entry = [], None
@@ -217,6 +221,15 @@ def card_peaks(name: str) -> tuple[float, float]:
     if "NVL" in name:
         return 3.9e12, 30e12
     return 3.35e12, 34e12  # H100 SXM
+
+
+def card_fp32(name: str) -> float:
+    """float32 flop/s outside the tensor cores, from NVIDIA's data sheets."""
+    if "PCIe" in name:
+        return 51e12
+    if "NVL" in name:
+        return 60e12
+    return 67e12  # H100 SXM, H200
 
 
 def time_ms(fn, reps: int = 25) -> float:
@@ -331,6 +344,7 @@ def phase_kernels_small():
                     worst[name] = max(worst[name], err / scale)
                     cases += 1
     cases += _ell_width_cases(worst)
+    bits = _stream_bit_cases()
     cases += _stream_schedule_cases(worst)
     cases += _batched_cases(worst)
     # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
@@ -348,25 +362,43 @@ def phase_kernels_small():
         raise AssertionError(f"a plan with W={wide.window} launched without a ValueError")
     check(kernels.LAUNCHES == before, "the infeasible plan launched a kernel")
     emit({"phase": "kernels_small", "cases": cases, "infeasible_plan": infeasible,
+          "b3_b5_bits_equal": bits,
           "tolerance": "max|err| <= tol * "
           "max(1, max|plain|), tol 2e-4 (float32) / 1e-12 (float64)",
           "worst_scaled_err": worst})
 
 
 # B3/B4 widths: one slot, the 2D and 3D P1 stencils, each side of a power
-# of two, the widest tile rows and past them (a warp per row), and the 3D
-# elasticity stencil
-ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40, 45)
+# of two, the 3D vector P1 and Q1 stencils (45, 81), and each side of every
+# boundary between the tile kernel (up to 32 slots), the wide-tile kernel
+# and a warp per row (multiples of 16; a stage past 32 KiB: 85 | 86 in
+# float64, 127 | 129 in float32)
+ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40, 45, 47, 48, 49, 63, 64, 65, 79, 80, 81, 85, 86,
+              95, 96, 97, 111, 112, 113, 127, 128, 129)
 def _ell_width_cases(worst) -> int:
-    """B3/B4 against their plain versions at every width of ``ELL_WIDTHS``, N not a multiple of 32 (one tile and a ragged
-    one; many tiles), operands aligned or one element off 16 bytes."""
-    from repro_torch.kernels import galerkin_residual_ell, spmv_ell
+    """B3/B4 against their plain versions at every width of
+    ``ELL_WIDTHS``, N not a multiple of 32 (one tile and a ragged one; many
+    tiles), operands aligned or one element off 16 bytes; the shared
+    memory the library launches each width with against
+    ``ell_launch_shape`` (which pins the kernel it takes)."""
+    from repro_torch.kernels import _cuda, galerkin_residual_ell, spmv_ell
     from repro_torch.kernels.ref import galerkin_residual_ell_ref, spmv_ell_ref
+    from repro_torch.kernels.spmv_ell import ell_launch_shape
 
+    for itemsize in (4, 8):
+        for width in range(1, 256):
+            if ell_launch_shape(width, itemsize)[0] != ell_launch_shape(width + 1, itemsize)[0]:
+                check({width, width + 1} <= set(ELL_WIDTHS),
+                      f"ELL_WIDTHS misses a side of {width} | {width + 1} ({itemsize} bytes)")
     cases = 0
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
+        itemsize = torch.empty((), dtype=dtype).element_size()
         for width in ELL_WIDTHS:
+            smem = _cuda.query("spmv_ell", f"tg_ell_smem_f{8 * itemsize}", "cuda", width)
+            check(smem == ell_launch_shape(width, itemsize)[2],
+                  f"L={width} {dtype}: the library launches with {smem} bytes of shared "
+                  f"memory, ell_launch_shape says {ell_launch_shape(width, itemsize)}")
             for n in (45, 10_007):
                 for skip in (0, 1):
                     rng = np.random.default_rng(n + width)
@@ -477,6 +509,41 @@ def _banded(rows, centre, half=40):
     (a 7-wide spread within), clipped to the matrix."""
     offs = np.array([-3, -1, 0, 1, 2, half // 2, half])
     return np.clip(centre[:, None] + offs[None, :], 0, rows - 1).astype(np.int32)
+
+
+def _wide_band(rows, width):
+    """ELL columns of a band ``width`` slots wide: row r reads ``width``
+    columns spread evenly over r - 120 .. r + 120, clipped to the matrix."""
+    offs = np.round(np.linspace(-120, 120, width)).astype(np.int64)
+    return np.clip(np.arange(rows)[:, None] + offs[None, :], 0, rows - 1).astype(np.int32)
+
+
+# widths past 32 slots at which B3/B4 and B5/B6 must agree bit for bit
+BIT_WIDTHS = (33, 45, 64, 81)
+
+
+def _stream_bit_cases() -> dict:
+    """B3 against B5 and B4 against B6 with ``torch.equal`` at each width
+    of ``BIT_WIDTHS`` (wide tiles, and a warp per row at 64), float32 and
+    float64, on a band whose streaming plan fits shared memory: both
+    kernels sum a row in the same order."""
+    from repro_torch.kernels import (StreamPlan, galerkin_residual_ell,
+                                     galerkin_residual_ell_stream, spmv_ell, spmv_ell_stream)
+
+    n, out = 30_001, {}
+    rng = np.random.default_rng(33)
+    for width in BIT_WIDTHS:
+        cols = _wide_band(n, width)
+        plan, cols_dev = StreamPlan(cols, 1024), torch.as_tensor(cols, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            vals, x, f = (torch.as_tensor(rng.normal(size=shape), dtype=dtype, device="cuda")
+                          for shape in ((n, width), n, n))
+            out[f"L={width} {str(dtype)[6:]}"] = (
+                torch.equal(spmv_ell(vals, cols_dev, x), spmv_ell_stream(vals, plan, x))
+                and torch.equal(galerkin_residual_ell(vals, cols_dev, x, f),
+                                galerkin_residual_ell_stream(vals, plan, x, f)))
+    check(all(out.values()), f"B3/B4 and B5/B6 differ in bits: {out}")
+    return out
 
 
 def stream_schedule_plans():
@@ -831,29 +898,74 @@ def phase_stream_solve():
     return k, launches
 
 
-def ell_design(n: int, width: int) -> dict | None:
-    """B3/B4's launch at (N, L): grid, rows per warp tile, tiles in flight
-    per warp and dynamic shared memory per CTA; None for a library without
-    the query (an earlier commit's)."""
+def ell_design(n: int, width: int, itemsize: int = 8) -> dict | None:
+    """B3/B4's launch at (N, L) with ``itemsize``-byte values: the kernel,
+    grid, warps per CTA, dynamic shared memory per CTA, and for the tile
+    kernels rows per warp tile and tiles in flight per warp; None for a
+    library without the query (an earlier commit's)."""
+    import importlib
+
     from repro_torch.kernels import _cuda
 
     if not hasattr(_cuda._library("spmv_ell"), "tg_ell_grid_f64"):
         return None
-    if width > 32:
-        return {"kernel": "a warp per row (L > 32)",
-                "grid": _cuda.query("spmv_ell", "tg_ell_grid_f64", "cuda", n, width)}
-    return {"kernel": "32-row warp tiles, one bulk copy per array",
-            "grid": _cuda.query("spmv_ell", "tg_ell_grid_f64", "cuda", n, width),
-            "warps_per_cta": 4, "rows_per_tile": 32, "tiles_in_flight": 1,
-            "smem_bytes_per_cta": _cuda.query("spmv_ell", "tg_ell_smem_f64", "cuda", width)}
+    module = importlib.import_module("repro_torch.kernels.spmv_ell")
+    if hasattr(module, "ell_launch_shape"):
+        kernel, warps, _ = module.ell_launch_shape(width, itemsize)
+    else:  # an earlier commit's: tiles up to 32 slots, a warp per row past them
+        kernel, warps = ("tile_kernel", 4) if width <= 32 else ("wide_kernel", 8)
+    bits = 8 * itemsize
+    out = {"kernel": kernel,
+           "grid": _cuda.query("spmv_ell", f"tg_ell_grid_f{bits}", "cuda", n, width),
+           "warps_per_cta": warps,
+           "smem_bytes_per_cta": _cuda.query("spmv_ell", f"tg_ell_smem_f{bits}", "cuda", width)}
+    if kernel != "wide_kernel":
+        out.update(rows_per_tile=32, tiles_in_flight=1)
+    return out
 
 
-def ell_rows(ops: dict, bound, rng) -> dict:
+def grid_operator(width: int, dtype=torch.float64, n: int = 40):
+    """A FEM-like vector CSR operator: 3 components on each node of an n³
+    grid, node k coupled to the ceil(L/3) grid offsets nearest it (up to 3
+    apart); a row takes the first L of those (offset, component) columns
+    that lie in the grid, so interior rows are L wide.  Random values of
+    ``dtype``."""
+    from repro_torch.core.sparse import CSR
+
+    c = -(-width // 3)
+    r = np.arange(-3, 4)
+    off = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    off = off[np.lexsort((off[:, 2], off[:, 1], off[:, 0], (off ** 2).sum(1)))][:c]
+    ijk = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    nb = ijk[:, None, :] + off[None]
+    keep = np.repeat(((nb >= 0) & (nb < n)).all(-1), 3, axis=1)
+    keep[:, width:] = False
+    node = (nb[..., 0] * n + nb[..., 1]) * n + nb[..., 2]
+    cols = np.sort(np.where(keep, (3 * node[:, :, None] + np.arange(3)).reshape(keep.shape),
+                            3 * n ** 3), axis=1)  # the kept columns first, in order
+    counts = keep.sum(1)
+    first = np.repeat(np.arange(3 * c)[None, :] < counts[:, None], 3, axis=0)
+    indices = np.repeat(cols, 3, axis=0)[first]
+    indptr = np.concatenate([[0], np.cumsum(np.repeat(counts, 3))])
+    vals = torch.as_tensor(np.random.default_rng(width).normal(size=indices.size), dtype=dtype,
+                           device="cuda")
+    return CSR.from_arrays(vals, indptr, indices, (3 * n ** 3, 3 * n ** 3))
+
+
+# grid operators on each side of the wide-tile kernel's limits, as dtype ->
+# widths: 45 | 48 (a multiple of 16 takes a warp per row) and the largest
+# stage, 85 | 86 in float64 and 127 | 129 in float32
+GRID_WIDTHS = {torch.float64: (45, 48, 85, 86), torch.float32: (127, 129)}
+
+
+def ell_rows(ops: dict, bound, rng, bound32=None) -> dict:
     """B3/B4 on each CSR operator of ``ops`` (label -> CSR, the first the
-    main row): error against the plain version, times, bound and design
-    figures.  ``requested_bytes`` counts what the kernel asks of the memory
-    system: vals and cols staged once, one x element gathered per slot
-    (from L2 or HBM: which was not measured), y [and f] once."""
+    main row), in the dtype of its values: error against the plain
+    version, times, bound (``bound``, or ``bound32`` for float32 values)
+    and design figures.  ``requested_bytes`` counts what the kernel asks
+    of the memory system: vals and cols staged once, one x element
+    gathered per slot (from L2 or HBM: which was not measured), y [and f]
+    once."""
     from repro_torch.core import csr_to_ell
     from repro_torch.kernels import galerkin_residual_ell, spmv_ell
     from repro_torch.kernels.ref import galerkin_residual_ell_ref, spmv_ell_ref
@@ -862,12 +974,13 @@ def ell_rows(ops: dict, bound, rng) -> dict:
     for label, op in ops.items():
         ell = csr_to_ell(op)
         n, width = ell.vals.shape
-        x = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
-        f = torch.as_tensor(rng.normal(size=n), dtype=torch.float64, device="cuda")
+        dtype, item = op.vals.dtype, op.vals.element_size()
+        x = torch.as_tensor(rng.normal(size=n), dtype=dtype, device="cuda")
+        f = torch.as_tensor(rng.normal(size=n), dtype=dtype, device="cuda")
         a_lib = torch.sparse_csr_tensor(torch.as_tensor(op.indptr, device="cuda"),
                                         torch.as_tensor(op.indices, device="cuda"), op.vals,
                                         size=op.shape)
-        design = ell_design(n, width)
+        design = ell_design(n, width, item)
         for name, fn, ref, lib, extra in (
             ("spmv_ell", lambda: spmv_ell(ell.vals, ell.cols_dev, x),
              lambda: spmv_ell_ref(ell.vals, ell.cols_dev, x), lambda: a_lib @ x, 0),
@@ -876,17 +989,19 @@ def ell_rows(ops: dict, bound, rng) -> dict:
              lambda: torch.addmv(f, a_lib, x, beta=-1.0), 1),
         ):
             err, scale = max_err(fn(), ref())
-            check(err <= 1e-12 * scale, f"{name} {label}: {err}")
+            check(err <= TOL[dtype] * scale, f"{name} {label}: {err}")
             err_lib, _ = max_err(lib(), ref())
-            check(err_lib <= 1e-12 * scale, f"{name} {label}: library call disagrees: {err_lib}")
+            check(err_lib <= TOL[dtype] * scale,
+                  f"{name} {label}: library call disagrees: {err_lib}")
             # the bound: vals, cols, x, y [, f] once each
-            nbytes = 12 * n * width + 8 * n * (2 + extra)
-            b_ms, b_by = bound(nbytes, 2 * op.nnz + extra * n)
-            row = {"shape": f"N={n} L={width} nnz={op.nnz}", "max_abs_err": err,
-                   "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(ref),
-                   "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes, "requested_bytes": nbytes - 8 * n + 8 * n * width,
-                   "design": design}
+            nbytes = (item + 4) * n * width + item * n * (2 + extra)
+            b_ms, b_by = (bound32 if dtype == torch.float32 else bound)(nbytes,
+                                                                        2 * op.nnz + extra * n)
+            row = {"shape": f"N={n} L={width} nnz={op.nnz} {str(dtype)[6:]}",
+                   "max_abs_err": err, "scale": scale, "ms": time_ms(fn),
+                   "plain_ms": time_ms(ref), "library_ms": time_ms(lib), "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes,
+                   "requested_bytes": nbytes - item * n + item * n * width, "design": design}
             out.setdefault(name, {})[label] = row
     first = next(iter(ops))
     return {name: {**by_label[first], **{lab: r for lab, r in by_label.items() if lab != first}}
@@ -921,15 +1036,26 @@ def wrapper_host_us(calls: int = 500, reps: int = 11) -> dict:
 
 
 def phase_ell_timing(bw, fp64):
-    """B3/B4 alone at the n = 64 and n = 96 stiffness (``--only``): the
-    rows of ``kernels_main`` and the wrappers' host time per call, for
-    holding a change against its parent."""
-    from repro_torch.core import unit_cube_tet
-    from repro_torch.fem import PoissonProblem
+    """B3/B4 alone (``--only``) at the n = 64 and n = 96 stiffness (L =
+    15, the rows of ``kernels_main``), the n = 48 elasticity operator (L =
+    45) and the n_r = 256 mixed-BC operator (L = 8) that phases
+    ``elasticity`` and ``mixed_bc`` solve, and the grid operators of
+    ``GRID_WIDTHS``; and the wrappers' host time per call: for holding a
+    change against its parent."""
+    from repro_torch.core import hollow_cube_tet, unit_cube_tet, weakform as wf
+    from repro_torch.fem import ElasticityProblem, PoissonProblem
 
     ops = {f"n{n}": PoissonProblem(unit_cube_tet(n), device="cuda").assemble(f=1.0)[0]
            for n in (MAIN_N, STREAM_N)}
-    rows = ell_rows(ops, bounder(bw, fp64), np.random.default_rng(7))
+    ops[f"elasticity_n{ELASTICITY_N}"] = ElasticityProblem(hollow_cube_tet(ELASTICITY_N),
+                                                           device="cuda").assemble()[0]
+    mixed = _mixed_problem(MIXED_N_R)
+    k = mixed.asm.assemble(wf.diffusion() + wf.robin(1.0, on=mixed._fa_r))
+    ops[f"mixed_bc_n{MIXED_N_R}"] = mixed.bc.apply_matrix_only(k)
+    ops.update({f"grid_L{w}_{str(dtype)[6:]}": grid_operator(w, dtype)
+                for dtype, widths in GRID_WIDTHS.items() for w in widths})
+    rows = ell_rows(ops, bounder(bw, fp64), np.random.default_rng(7),
+                    bounder(bw, card_fp32(torch.cuda.get_device_name(0))))
     emit({"phase": "ell_timing", "rows": rows, "host_us_per_call": wrapper_host_us()})
     return rows
 
@@ -1286,13 +1412,14 @@ def _kernel_calls(prof) -> dict:
     of this repository's kernels."""
     names = {"p1_stiffness_kernel": "local_stiffness_p1", "seg_reduce_kernel": "seg_reduce",
              "tile_kernel": "spmv_ell/residual (tiles)",
+             "wide_tile_kernel": "spmv_ell/residual (wide tiles)",
              "wide_kernel": "spmv_ell/residual (warp per row)"}
     out = dict.fromkeys(names.values(), 0)
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         for key, label in names.items():
-            if key in ev.key:
+            if re.search(rf"\b{key}\b", ev.key):  # tile_kernel is not wide_tile_kernel
                 out[label] += ev.count
     return out
 
@@ -1373,6 +1500,7 @@ def phase_mixed_bc():
           f"mixed_bc: the profiler saw {calls}")
     # rows 8 wide: B3 (2·iters + 1) and B4 (1) on the tile kernel
     check(calls["spmv_ell/residual (tiles)"] == 2 * res_prof.iters + 2
+          and calls["spmv_ell/residual (wide tiles)"] == 0
           and calls["spmv_ell/residual (warp per row)"] == 0,
           f"mixed_bc: the profiler saw {calls} for {res_prof.iters} iterations")
     return out
@@ -1397,10 +1525,10 @@ def rigid_body_modes(points: np.ndarray) -> np.ndarray:
 
 def phase_elasticity(bw, fp64):
     """ElasticityProblem(hollow_cube_tet(48)) (paper Benchmark II): BiCGSTAB
-    on `ell`, whose rows are 45 wide (B3/B4 take the warp-per-row kernel);
+    on `ell`, whose rows are 45 wide (B3/B4 take the wide-tile kernel);
     a scipy residual on the host; the un-condensed K through B3 on the six
     rigid-body modes; the JAX package's numbers at n = 4 and 8; B3/B4's
-    times at L = 45."""
+    times at L = 45 and on the float64 grid operators of ``GRID_WIDTHS``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
@@ -1437,7 +1565,8 @@ def phase_elasticity(bw, fp64):
     k_norm = float(k_full.vals.abs().max())
     modes = torch.as_tensor(rigid_body_modes(prob.mesh.points), device="cuda")
     null = [float(spmv_ell(ell.vals, ell.cols_dev, r).abs().max()) / k_norm for r in modes]
-    rows = ell_rows({"n48": kc}, bounder(bw, fp64), np.random.default_rng(45))
+    grids = {f"grid_L{w}": grid_operator(w) for w in GRID_WIDTHS[torch.float64]}
+    rows = ell_rows({"n48": kc, **grids}, bounder(bw, fp64), np.random.default_rng(45))
     for name in rows:
         rows[name]["launches_in_solve"] = launches[name]
     out = {"phase": "elasticity", "n": ELASTICITY_N, "dofs": prob.space.num_dofs,
@@ -1463,9 +1592,10 @@ def phase_elasticity(bw, fp64):
           f"elasticity: assembly launches {launches}")
     check(launches["spmv_ell"] == 2 * res.iters + 1 and launches["galerkin_residual_ell"] == 1,
           f"elasticity: solve launches {launches}")
-    # rows 45 wide: B3 (2·iters + 1) and B4 (1) on the warp-per-row kernel;
+    # rows 45 wide: B3 (2·iters + 1) and B4 (1) on the wide-tile kernel;
     # the assembly's two Reduces on B2, no B1 (a vector space)
-    check(calls["spmv_ell/residual (warp per row)"] == 2 * res_prof.iters + 2
+    check(calls["spmv_ell/residual (wide tiles)"] == 2 * res_prof.iters + 2
+          and calls["spmv_ell/residual (warp per row)"] == 0
           and calls["spmv_ell/residual (tiles)"] == 0,
           f"elasticity: the profiler saw {calls} for {res_prof.iters} iterations")
     check(calls["seg_reduce"] == 2 and calls["local_stiffness_p1"] == 0,

@@ -42,11 +42,42 @@
 //     of two >= L (slot l + G/2 onto slot l, then G/4, ...), which the
 //     streaming kernel (spmv_ell_stream.cu) keeps as well: B3 and B5 give
 //     the same bits.
-// Rows wider than 32 slots take a warp per row instead: lane l sums slots
-// l, l + 32, ... in turn, then the lanes' shuffle tree.
-// Shared memory per CTA (tile_smem): 4 warps x (32 L (sizeof(T) + 4) + 32)
+// Shared memory per CTA (smem_of): 4 warps x (32 L (sizeof(T) + 4) + 32)
 // bytes, plus an 8-byte mbarrier per warp; 23,200 bytes at the main path
 // (L = 15, float64), so nine CTAs (36 warps) share an SM.
+//
+// Rows past 32 slots whose 32-row stage (32 L (sizeof(T) + 4) bytes) is at
+// most 32 KiB, unless L is a multiple of 16: the same one-pass design in
+// wide_tile_kernel; in float64 L = 33-85, in float32 L = 33-127 (the
+// vector P1 tetrahedron stencil, 45; the vector Q1 hexahedron stencil, 81).
+// A 32-row tile's vals and cols are still contiguous multiples of 16
+// bytes, so the staging is the same.
+//   * What bounds it: memory, as above.  What holds it back: a stage grows
+//     with L, so fewer warps fit an SM as L grows, and a warp's gathers
+//     wait for its whole tile.
+//   * One warp per CTA: one-warp CTAs pack the SM's shared memory the
+//     tightest.  Shared memory per CTA: the stage, 32 bytes of room and
+//     an 8-byte mbarrier; float64: 12,712 bytes at L = 33, 17,320 at 45
+//     (12 CTAs per SM), 32,680 at 85 (6); float32: 8,488, 11,560 and
+//     32,552 at 127 (6).  __launch_bounds__ holds the registers to 12 CTAs
+//     per SM (at most 168 a thread; ptxas -v in chip_smoke.py).
+//   * Lane i keeps 32 partials in registers: partial j is the product of
+//     slot j, then slots j + 32, j + 64, ... fused onto it in turn (one
+//     rounding each); each 32 slots' gathers of x are issued before their
+//     products, so 32 gathers per lane are in flight.  Then the tree of 32
+//     (partial j + 16 onto j, then 8, ...).  That is the order of a warp
+//     per row (lane j's fused chain, then the shuffle tree) and of the
+//     streaming kernel past 32 slots: at every width B3 and B5 give the
+//     same bits.
+//   * Where it stops.  Rows of a multiple of 16 slots lie a multiple of 64
+//     bytes apart in the stage, so lane i's reads of row i meet in one
+//     shared-memory bank 16 or 32 lanes at a time; past a 32 KiB stage
+//     fewer than 6 warps fit an SM.  On an H100, on FEM-like vector
+//     operators, a warp per row was faster at L = 48 and 64 and past that
+//     stage (PERF.md).
+// Those rows take a warp per row (wide_kernel): lane l reads slots l,
+// l + 32, ... straight from memory, 8 warps to a 256-thread block, and the
+// lanes' shuffle tree sums them.
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
@@ -58,13 +89,19 @@ namespace {
 
 constexpr int kWarps = 4;              // warps per CTA of the tile kernel
 constexpr int kThreads = 32 * kWarps;
+constexpr int kWideWarps = 1;          // warps per CTA of the wide-tile kernel
+constexpr int kWideCtas = 12;          // its CTAs per SM that the registers must allow
 constexpr int kTileRows = 32;          // rows of a warp tile: lane i sums row i
-constexpr int kMaxTileWidth = 32;      // wider rows take the warp-per-row kernel
+constexpr int kMaxTileWidth = 32;      // the tile kernel's widest rows
+constexpr int kMaxWideStage = 32768;   // bytes of the wide-tile kernel's largest stage
 constexpr int kWideBlock = 256;
-constexpr int kMaxDevices = 64;        // devices whose tile-kernel grid is cached
+constexpr int kMaxDevices = 64;        // devices whose grid capacities are cached
+constexpr int kCacheSlots = 64;        // widths cached per device (width mod kCacheSlots)
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // The lane tree of G products, in registers: slot j + Off onto slot j for
 // Off = G/2, G/4, ..., 1 (every index a constant, so nothing spills to the
@@ -78,17 +115,57 @@ __device__ __forceinline__ void tree_sum(T (&p)[G]) {
   }
 }
 
+// Lane i's sum of row i from its stage: the row's `width` values vt and
+// columns ct.  G <= 32 (the power of two >= width): all gathers, then the
+// products, then the tree of G.  G > 32 (width > 32): 32 partials, partial
+// j the product of slot j with slots j + 32, j + 64, ... fused onto it in
+// turn, each 32 slots' gathers issued before their products; then the tree
+// of 32.
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* __restrict__ x,
-            const T* __restrict__ f, T* __restrict__ y, long long n_rows, int width) {
+__device__ __forceinline__ T row_sum(const T* vt, const int* ct, const T* __restrict__ x,
+                                     int width) {
+  if constexpr (G <= kTileRows) {
+    T p[G];
+#pragma unroll
+    for (int l = 0; l < G; ++l) p[l] = l < width ? __ldg(x + ct[l]) : T(0);
+#pragma unroll
+    for (int l = 0; l < G; ++l) p[l] = l < width ? mul_rn(vt[l], p[l]) : T(0);
+    tree_sum<G / 2>(p);
+    return p[0];
+  } else {
+    T p[kTileRows];
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j) p[j] = __ldg(x + ct[j]);
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j) p[j] = mul_rn(vt[j], p[j]);
+    for (int l0 = kTileRows; l0 < width; l0 += kTileRows) {
+      T q[kTileRows];
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) q[j] = l0 + j < width ? __ldg(x + ct[l0 + j]) : T(0);
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) {
+        if (l0 + j < width) p[j] = fma_rn(vt[l0 + j], q[j], p[j]);
+      }
+    }
+    tree_sum<kTileRows / 2>(p);
+    return p[0];
+  }
+}
+
+// The body of both tile kernels: warp w of a CTA of Warps warps walks its
+// 32-row tiles, stages each and sums its rows with row_sum<T, G>.
+template <typename T, int G, int Warps>
+__device__ __forceinline__ void walk_tiles(const T* __restrict__ vals,
+                                           const int* __restrict__ cols,
+                                           const T* __restrict__ x, const T* __restrict__ f,
+                                           T* __restrict__ y, long long n_rows, int width) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const size_t vals_room = static_cast<size_t>(kTileRows) * width * sizeof(T) + 16;
   const size_t stage_bytes = vals_room + static_cast<size_t>(kTileRows) * width * sizeof(int) + 16;
   unsigned char* stage = smem + static_cast<size_t>(warp) * stage_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWarps * stage_bytes) + warp;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Warps * stage_bytes) + warp;
   if (lane == 0) {
     mbar_init(full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -98,8 +175,8 @@ tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
   const size_t vals_at = reinterpret_cast<uintptr_t>(vals) & 15;
   const size_t cols_at = vals_room + (reinterpret_cast<uintptr_t>(cols) & 15);
   const long long n_tiles = (n_rows + kTileRows - 1) / kTileRows;
-  const long long step = static_cast<long long>(gridDim.x) * kWarps;
-  const long long first = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long step = static_cast<long long>(gridDim.x) * Warps;
+  const long long first = static_cast<long long>(blockIdx.x) * Warps + warp;
   // vals and cols are read once: their lines leave L2 first, x stays
   const uint64_t policy = l2_evict_first();
 
@@ -128,13 +205,8 @@ tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
     const T* vt = reinterpret_cast<const T*>(stage + vals_at) + lane * width;
     const int* ct = reinterpret_cast<const int*>(stage + cols_at) + lane * width;
     if (live) {
-      T p[G];
-#pragma unroll
-      for (int l = 0; l < G; ++l) p[l] = l < width ? __ldg(x + ct[l]) : T(0);
-#pragma unroll
-      for (int l = 0; l < G; ++l) p[l] = l < width ? mul_rn(vt[l], p[l]) : T(0);
-      tree_sum<G / 2>(p);
-      y[row] = f != nullptr ? p[0] - fr : p[0];
+      const T sum = row_sum<T, G>(vt, ct, x, width);
+      y[row] = f != nullptr ? sum - fr : sum;
     }
     // the stage is refilled next: order these reads before the copies
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -142,8 +214,25 @@ tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
   }
 }
 
-// Rows wider than kMaxTileWidth: a warp per row, lane l summing slots
-// l, l + 32, ..., then the shuffle tree.
+// Rows of at most 32 slots, G the power of two >= width.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* __restrict__ x,
+            const T* __restrict__ f, T* __restrict__ y, long long n_rows, int width) {
+  walk_tiles<T, G, kWarps>(vals, cols, x, f, y, n_rows, width);
+}
+
+// Rows of 33 slots up to a stage of kMaxWideStage bytes, not a multiple of 16.
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideWarps, kWideCtas)
+wide_tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
+                 const T* __restrict__ x, const T* __restrict__ f, T* __restrict__ y,
+                 long long n_rows, int width) {
+  walk_tiles<T, 2 * kTileRows, kWideWarps>(vals, cols, x, f, y, n_rows, width);
+}
+
+// The other rows past 32 slots (see the header): a warp per row, lane l
+// summing slots l, l + 32, ..., then the shuffle tree.
 template <typename T>
 __global__ void __launch_bounds__(kWideBlock)
 wide_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* __restrict__ x,
@@ -161,19 +250,43 @@ wide_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
   if (lane == 0 && row < n_rows) y[row] = f != nullptr ? acc - f[row] : acc;
 }
 
+// The kernel that takes rows of `width` slots of `item`-byte values (see
+// the header): past 32 slots, the wide tiles unless the lanes' rows of a
+// stage share their banks (a multiple of 16 slots) or a stage passes
+// kMaxWideStage bytes (fewer than 6 warps an SM).
+enum class Variant { kTiles, kWideTiles, kWarpPerRow };
+
+Variant variant_of(long long width, size_t item) {
+  if (width <= kMaxTileWidth) return Variant::kTiles;
+  const bool fits = static_cast<size_t>(kTileRows) * width * (item + sizeof(int)) <= kMaxWideStage;
+  return fits && width % 16 != 0 ? Variant::kWideTiles : Variant::kWarpPerRow;
+}
+
+int warps_of(Variant v) { return v == Variant::kTiles ? kWarps : kWideWarps; }
+
 int group_of(long long width) {
   int g = 1;
   while (g < width && g < 32) g <<= 1;
   return g;
 }
 
-size_t tile_smem(long long width, size_t item) {
-  return static_cast<size_t>(kWarps) *
+// Dynamic shared memory per CTA of a tile kernel: each warp's stage (a
+// 32-row tile's vals and cols, each with 16 bytes of room to land at its
+// source's address modulo 16) and its 8-byte mbarrier; 0 for a warp per row.
+size_t smem_of(long long width, size_t item) {
+  const Variant v = variant_of(width, item);
+  if (v == Variant::kWarpPerRow) return 0;
+  return static_cast<size_t>(warps_of(v)) *
          (static_cast<size_t>(kTileRows) * width * (item + sizeof(int)) + 32 + 8);
 }
 
 template <typename T>
-const void* tile_entry(long long width) {
+const void* entry_of(long long width) {
+  switch (variant_of(width, sizeof(T))) {
+    case Variant::kWideTiles: return reinterpret_cast<const void*>(&wide_tile_kernel<T>);
+    case Variant::kWarpPerRow: return reinterpret_cast<const void*>(&wide_kernel<T>);
+    case Variant::kTiles: break;
+  }
   switch (group_of(width)) {
     case 1: return reinterpret_cast<const void*>(&tile_kernel<T, 1>);
     case 2: return reinterpret_cast<const void*>(&tile_kernel<T, 2>);
@@ -184,12 +297,12 @@ const void* tile_entry(long long width) {
   }
 }
 
-// CTAs of the tile kernel at `width` that device `dev` holds at once: SMs x
+// CTAs of the tile kernel taking `width` that device `dev` holds at once: SMs x
 // the occupancy API's CTAs per SM.  The lookup also lets the instance use
 // the device's opt-in shared memory.
 template <typename T>
 cudaError_t look_up_capacity(int dev, long long width, int* out) {
-  const void* kernel = tile_entry<T>(width);
+  const void* kernel = entry_of<T>(width);
   int optin = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) {
@@ -197,47 +310,59 @@ cudaError_t look_up_capacity(int dev, long long width, int* out) {
   }
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                        tile_smem(width, sizeof(T)));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, 32 * warps_of(variant_of(width, sizeof(T))), smem_of(width, sizeof(T)));
   }
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   if (err == cudaSuccess) *out = sms * per_sm;
   return err;
 }
 
-// The capacity of each (device, width), looked up at its first launch and
-// read without a lock after it (0: not looked up yet; a race looks up twice
-// and stores the same value).
+// The capacity of a (device, width), looked up at the width's first launch
+// and read without a lock after it.  A slot holds one word: the width in
+// its high half, the capacity in its low half (0: empty).  Widths equal
+// modulo kCacheSlots share a slot and evict each other (then look up
+// again); a race looks up twice and stores the same word.
 template <typename T>
-std::atomic<int>& known_capacity(int dev, long long width) {
-  static std::atomic<int> known[kMaxDevices][kMaxTileWidth + 1];
-  return known[dev][width];
+std::atomic<unsigned long long>& capacity_slot(int dev, long long width) {
+  static std::atomic<unsigned long long> known[kMaxDevices][kCacheSlots];
+  return known[dev][width % kCacheSlots];
 }
 
-// The grid of a launch on the current device: the tile kernel's CTAs (at
-// most one warp per tile), or the wide kernel's blocks; minus a CUDA error
-// code on failure.
+// The grid of a launch on the current device: a tile kernel's CTAs (at
+// most one warp per tile), or the warp-per-row kernel's blocks; minus a
+// CUDA error code on failure.
 template <typename T>
 long long grid_of(long long n_rows, long long width) {
-  if (width > kMaxTileWidth) return static_cast<long long>(tg_blocks(n_rows * 32, kWideBlock));
+  const Variant v = variant_of(width, sizeof(T));
+  if (v == Variant::kWarpPerRow) {
+    return static_cast<long long>(tg_blocks(n_rows * 32, kWideBlock));
+  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  int cap = dev < kMaxDevices ? known_capacity<T>(dev, width).load(std::memory_order_relaxed) : 0;
+  const unsigned long long key = static_cast<unsigned long long>(width) << 32;
+  const unsigned long long word =
+      dev < kMaxDevices ? capacity_slot<T>(dev, width).load(std::memory_order_relaxed) : 0;
+  int cap = (word >> 32) << 32 == key ? static_cast<int>(word & 0xffffffffu) : 0;
   if (cap == 0) {
     err = look_up_capacity<T>(dev, width, &cap);
     if (err != cudaSuccess) return -static_cast<long long>(err);
-    if (dev < kMaxDevices) known_capacity<T>(dev, width).store(cap, std::memory_order_relaxed);
+    if (dev < kMaxDevices) {
+      capacity_slot<T>(dev, width).store(key | static_cast<unsigned>(cap),
+                                         std::memory_order_relaxed);
+    }
   }
   const long long warps = (n_rows + kTileRows - 1) / kTileRows;
-  return std::min<long long>(cap, (warps + kWarps - 1) / kWarps);
+  const int per_cta = warps_of(v);
+  return std::min<long long>(cap, (warps + per_cta - 1) / per_cta);
 }
 
 template <typename T>
 int launch(const void* vals, const void* cols, const void* x, const void* f, void* y,
            long long n_rows, long long width, void* stream) {
   if (n_rows <= 0) return 0;
-  if (width < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (width < 1 || width > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const long long grid = grid_of<T>(n_rows, width);
   if (grid < 0) {
     cudaGetLastError();  // clear it: the wrapper raises
@@ -249,16 +374,13 @@ int launch(const void* vals, const void* cols, const void* x, const void* f, voi
   const auto* ff = static_cast<const T*>(f);
   auto* yy = static_cast<T*>(y);
   int w = static_cast<int>(width);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto g = static_cast<unsigned>(grid);
-  if (width > kMaxTileWidth) {
-    wide_kernel<T><<<g, kWideBlock, 0, s>>>(vv, cc, xx, ff, yy, n_rows, w);
-    return static_cast<int>(cudaGetLastError());
-  }
+  const Variant v = variant_of(width, sizeof(T));
+  const unsigned threads = v == Variant::kWarpPerRow ? kWideBlock : 32 * warps_of(v);
   // the instance is picked at run time: launch it by its entry
   void* args[] = {&vv, &cc, &xx, &ff, &yy, &n_rows, &w};
-  const cudaError_t err = cudaLaunchKernel(tile_entry<T>(width), dim3(g), dim3(kThreads), args,
-                                           tile_smem(width, sizeof(T)), s);
+  const cudaError_t err =
+      cudaLaunchKernel(entry_of<T>(width), dim3(static_cast<unsigned>(grid)), dim3(threads), args,
+                       smem_of(width, sizeof(T)), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) cudaGetLastError();
   return static_cast<int>(err);
 }
@@ -276,13 +398,9 @@ TG_EXPORT int tg_ell_grid_f64(long long n_rows, long long width) {
   return static_cast<int>(grid_of<double>(n_rows, width));
 }
 
-TG_EXPORT int tg_ell_smem_f32(long long width) {
-  return width > kMaxTileWidth ? 0 : static_cast<int>(tile_smem(width, 4));
-}
+TG_EXPORT int tg_ell_smem_f32(long long width) { return static_cast<int>(smem_of(width, 4)); }
 
-TG_EXPORT int tg_ell_smem_f64(long long width) {
-  return width > kMaxTileWidth ? 0 : static_cast<int>(tile_smem(width, 8));
-}
+TG_EXPORT int tg_ell_smem_f64(long long width) { return static_cast<int>(smem_of(width, 8)); }
 
 TG_EXPORT int tg_spmv_ell_f32(const void* vals, const void* cols, const void* x, void* y,
                               long long n_rows, long long width, void* stream) {

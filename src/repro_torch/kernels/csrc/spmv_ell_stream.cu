@@ -53,8 +53,9 @@
 //     blk_done (by block parity), which a window load waits for.
 //   * Consumers.  16 warps; a group of G lanes per row, G the power of two
 //     >= L (at most 32); a warp sums all its rows of a tile at once, for
-//     overlap, each row in the order of spmv_ell.cu (the lanes' products,
-//     then warp shuffles), so B5 and B3 give the same bits.
+//     overlap, each row in the order of spmv_ell.cu (each lane's product,
+//     or past 32 slots its fused chain of slots l, l + 32, ..., then warp
+//     shuffles), so B5 and B3 give the same bits at every width.
 // Shared memory per CTA (stream_smem_bytes in spmv_ell.py; the launcher
 // refuses any other size): R * sizeof(T) for the ring, nbuf stages of
 // kTileRows * L * (sizeof(T) + 4) + kTileRows * sizeof(T) + 48 bytes, and
