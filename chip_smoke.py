@@ -13,11 +13,10 @@ Phases, one JSON line each:
    spills for each kernel of each source;
 2. kernels_small — every kernel against its plain PyTorch version on the
    card at ragged shapes, float32 and float64 (B1/B2 also batched, B ∈
-   {1, 3}; B3/B4 at widths 1-129, each side of every boundary between
-   their three kernels, with N not a multiple of 32 and operands one
-   element off 16-byte alignment, and the launch shape each width takes
-   against ``ell_launch_shape``; B3 and B4 bit-equal to B5 and B6 at L =
-   33, 45, 64 and 81; the streaming kernels at the
+   {1, 3}; B3/B4 at widths 1-129, each side of every hand-over between
+   their three kernels that the library reports, with N not a multiple of
+   32 and operands one element off 16-byte alignment; B3 and B4 bit-equal
+   to B5 and B6 at L = 33, 45, 64 and 81; the streaming kernels at the
    JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
    each path of the kernel's schedule at every depth the wrapper accepts:
    decreasing window starts, a step past the ring, odd window starts with
@@ -86,8 +85,11 @@ exits non-zero; with no CUDA device it exits 2 and prints no result.
 ``--only`` runs the named phases alone, to hold a change against its
 parent on one card: ``gradients``, ``ell_timing`` (B3/B4 at the n = 64 and
 n = 96 stiffness, the n = 48 elasticity operator (L = 45), the mixed-BC
-operator (L = 8) and grid operators on each side of the wide-tile
-kernel's limits, built for the phase) and ``host_cost`` (the ELL wrappers'
+operator (L = 8) and grid operators on each side of the wide tiles'
+hand-over, built for the phase), ``ell_sweep`` (B3 on the wide tiles and
+on a warp per row side by side, at L = 45 and 81 on the repo's vector
+operators and at L = 45-256 on grid operators: where the hand-over
+belongs) and ``host_cost`` (the ELL wrappers'
 host time per call and the n = 64 CG loop's wall time per iteration),
 ``assembly_cost`` (the wall time of a warm n = 64 assembly) and
 ``cold_path`` (reference, main_path and transient in a fresh process: the
@@ -370,35 +372,42 @@ def phase_kernels_small():
 
 # B3/B4 widths: one slot, the 2D and 3D P1 stencils, each side of a power
 # of two, the 3D vector P1 and Q1 stencils (45, 81), and each side of every
-# boundary between the tile kernel (up to 32 slots), the wide-tile kernel
-# and a warp per row (multiples of 16; a stage past 32 KiB: 85 | 86 in
-# float64, 127 | 129 in float32)
+# hand-over between the tile kernel (up to 32 slots), the wide-tile kernel
+# and a warp per row (a stage of 32 KiB or more: 85 | 86 in float64,
+# 127 | 128 in float32), which the library reports
 ELL_WIDTHS = (1, 7, 15, 16, 17, 32, 33, 40, 45, 47, 48, 49, 63, 64, 65, 79, 80, 81, 85, 86,
               95, 96, 97, 111, 112, 113, 127, 128, 129)
+ELL_VARIANTS = ("tile_kernel", "wide_tile_kernel", "wide_kernel")  # tg_ell_variant_* order
+
+
+def ell_variant(width: int, itemsize: int) -> str:
+    """The kernel the library launches on rows of ``width`` slots of
+    ``itemsize``-byte values."""
+    from repro_torch.kernels import _cuda
+
+    return ELL_VARIANTS[_cuda.query("spmv_ell", f"tg_ell_variant_f{8 * itemsize}", "cuda",
+                                    width)]
+
+
 def _ell_width_cases(worst) -> int:
     """B3/B4 against their plain versions at every width of
-    ``ELL_WIDTHS``, N not a multiple of 32 (one tile and a ragged one; many
-    tiles), operands aligned or one element off 16 bytes; the shared
-    memory the library launches each width with against
-    ``ell_launch_shape`` (which pins the kernel it takes)."""
-    from repro_torch.kernels import _cuda, galerkin_residual_ell, spmv_ell
+    ``ELL_WIDTHS``, which holds each side of every hand-over the library
+    reports between its kernels, N not a multiple of 32 (one tile and a
+    ragged one; many tiles), operands aligned or one element off 16
+    bytes."""
+    from repro_torch.kernels import galerkin_residual_ell, spmv_ell
     from repro_torch.kernels.ref import galerkin_residual_ell_ref, spmv_ell_ref
-    from repro_torch.kernels.spmv_ell import ell_launch_shape
 
     for itemsize in (4, 8):
-        for width in range(1, 256):
-            if ell_launch_shape(width, itemsize)[0] != ell_launch_shape(width + 1, itemsize)[0]:
+        kinds = [ell_variant(width, itemsize) for width in range(1, 400)]
+        for width in range(1, 399):
+            if kinds[width - 1] != kinds[width]:
                 check({width, width + 1} <= set(ELL_WIDTHS),
                       f"ELL_WIDTHS misses a side of {width} | {width + 1} ({itemsize} bytes)")
     cases = 0
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
-        itemsize = torch.empty((), dtype=dtype).element_size()
         for width in ELL_WIDTHS:
-            smem = _cuda.query("spmv_ell", f"tg_ell_smem_f{8 * itemsize}", "cuda", width)
-            check(smem == ell_launch_shape(width, itemsize)[2],
-                  f"L={width} {dtype}: the library launches with {smem} bytes of shared "
-                  f"memory, ell_launch_shape says {ell_launch_shape(width, itemsize)}")
             for n in (45, 10_007):
                 for skip in (0, 1):
                     rng = np.random.default_rng(n + width)
@@ -899,25 +908,20 @@ def phase_stream_solve():
 
 
 def ell_design(n: int, width: int, itemsize: int = 8) -> dict | None:
-    """B3/B4's launch at (N, L) with ``itemsize``-byte values: the kernel,
-    grid, warps per CTA, dynamic shared memory per CTA, and for the tile
-    kernels rows per warp tile and tiles in flight per warp; None for a
-    library without the query (an earlier commit's)."""
-    import importlib
-
+    """B3/B4's launch at (N, L) with ``itemsize``-byte values, as the
+    library reports it: the kernel, grid, warps per CTA, dynamic shared
+    memory per CTA, and for the tile kernels rows per warp tile and tiles
+    in flight per warp; None for a library without the query (an earlier
+    commit's)."""
     from repro_torch.kernels import _cuda
 
-    if not hasattr(_cuda._library("spmv_ell"), "tg_ell_grid_f64"):
+    if not hasattr(_cuda._library("spmv_ell"), "tg_ell_variant_f64"):
         return None
-    module = importlib.import_module("repro_torch.kernels.spmv_ell")
-    if hasattr(module, "ell_launch_shape"):
-        kernel, warps, _ = module.ell_launch_shape(width, itemsize)
-    else:  # an earlier commit's: tiles up to 32 slots, a warp per row past them
-        kernel, warps = ("tile_kernel", 4) if width <= 32 else ("wide_kernel", 8)
     bits = 8 * itemsize
+    kernel = ell_variant(width, itemsize)
     out = {"kernel": kernel,
            "grid": _cuda.query("spmv_ell", f"tg_ell_grid_f{bits}", "cuda", n, width),
-           "warps_per_cta": warps,
+           "warps_per_cta": {"tile_kernel": 4, "wide_tile_kernel": 1, "wide_kernel": 8}[kernel],
            "smem_bytes_per_cta": _cuda.query("spmv_ell", f"tg_ell_smem_f{bits}", "cuda", width)}
     if kernel != "wide_kernel":
         out.update(rows_per_tile=32, tiles_in_flight=1)
@@ -952,10 +956,17 @@ def grid_operator(width: int, dtype=torch.float64, n: int = 40):
     return CSR.from_arrays(vals, indptr, indices, (3 * n ** 3, 3 * n ** 3))
 
 
-# grid operators on each side of the wide-tile kernel's limits, as dtype ->
-# widths: 45 | 48 (a multiple of 16 takes a warp per row) and the largest
-# stage, 85 | 86 in float64 and 127 | 129 in float32
-GRID_WIDTHS = {torch.float64: (45, 48, 85, 86), torch.float32: (127, 129)}
+# grid operators at the elasticity stencil's width and on each side of the
+# wide tiles' hand-over to a warp per row, as dtype -> widths: 85 | 86 in
+# float64 and 127 | 128 in float32
+GRID_WIDTHS = {torch.float64: (45, 85, 86), torch.float32: (127, 128)}
+# phase ell_sweep: widths on each side of the hand-over and well past it,
+# on grid operators of SWEEP_GRIDS³ nodes
+SWEEP_WIDTHS = {torch.float64: (40, 45, 48, 56, 64, 72, 80, 81, 85, 86, 96, 105, 128, 160,
+                                201),
+                torch.float32: (64, 127, 128, 129, 160, 201, 256)}
+SWEEP_GRIDS = (40, 48)
+SWEEP_HEX_N = 47  # ElasticityProblem(unit_cube_hex(47)): 331,776 DoFs, rows 81 wide
 
 
 def ell_rows(ops: dict, bound, rng, bound32=None) -> dict:
@@ -1057,6 +1068,64 @@ def phase_ell_timing(bw, fp64):
     rows = ell_rows(ops, bounder(bw, fp64), np.random.default_rng(7),
                     bounder(bw, card_fp32(torch.cuda.get_device_name(0))))
     emit({"phase": "ell_timing", "rows": rows, "host_us_per_call": wrapper_host_us()})
+    return rows
+
+
+def phase_ell_sweep(bw, fp64):
+    """B3 on the wide tiles and on a warp per row side by side (``--only``;
+    ``tg_spmv_ell_as_*`` launches the kernel it is given): the repo's
+    operators past 32 slots (the n = 48 elasticity operator, L = 45; vector
+    Q1 hexes, ``ElasticityProblem(unit_cube_hex(47))``, L = 81) and the
+    grid operators of ``SWEEP_GRIDS`` and ``SWEEP_WIDTHS``, each against
+    the plain version and the two kernels bit for bit: where the library
+    should hand rows from one kernel to the other."""
+    from repro_torch.core import csr_to_ell, hollow_cube_tet, unit_cube_hex
+    from repro_torch.fem import ElasticityProblem
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.ref import spmv_ell_ref
+
+    ops = {f"elasticity_n{ELASTICITY_N}": lambda: ElasticityProblem(
+               hollow_cube_tet(ELASTICITY_N), device="cuda").assemble()[0],
+           f"hex_elasticity_n{SWEEP_HEX_N}": lambda: ElasticityProblem(
+               unit_cube_hex(SWEEP_HEX_N), device="cuda").assemble()[0]}
+    for dtype, widths in SWEEP_WIDTHS.items():
+        for grid in SWEEP_GRIDS:
+            for w in widths:
+                ops[f"grid{grid}_L{w}_{str(dtype)[6:]}"] = (
+                    lambda w=w, dtype=dtype, grid=grid: grid_operator(w, dtype, grid))
+    bounds = {torch.float64: bounder(bw, fp64),
+              torch.float32: bounder(bw, card_fp32(torch.cuda.get_device_name(0)))}
+    rng = np.random.default_rng(11)
+    rows = {}
+    for label, make in ops.items():
+        op = make()
+        ell = csr_to_ell(op)
+        n, width = ell.vals.shape
+        dtype, item = op.vals.dtype, op.vals.element_size()
+        x = torch.as_tensor(rng.normal(size=n), dtype=dtype, device="cuda")
+        want = spmv_ell_ref(ell.vals, ell.cols_dev, x)
+        row = {"shape": f"N={n} L={width} nnz={op.nnz} {str(dtype)[6:]}",
+               "library_picks": ell_variant(width, item)}
+        outs = []
+        for variant, kernel in ((1, "wide_tile_kernel"), (2, "wide_kernel")):
+            y = torch.empty(n, dtype=dtype, device="cuda")
+
+            def fn(variant=variant, y=y):
+                _cuda.launch("spmv_ell", "spmv_ell", _cuda.symbol("tg_spmv_ell_as", dtype),
+                             ell.vals, ell.cols_dev, x, y, n, width, variant)
+
+            fn()
+            err, scale = max_err(y, want)
+            check(err <= TOL[dtype] * scale, f"ell_sweep {label} {kernel}: {err}")
+            outs.append(y)
+            row[f"{kernel}_ms"] = time_ms(fn)
+        check(torch.equal(*outs), f"ell_sweep {label}: the two kernels' bits differ")
+        row["bound_ms"], row["bound_by"] = bounds[dtype]((item + 4) * n * width + 2 * item * n,
+                                                         2 * op.nnz)
+        row["wide_tiles_over_warp_per_row"] = row["wide_tile_kernel_ms"] / row["wide_kernel_ms"]
+        rows[label] = row
+        del op, ell, outs
+    emit({"phase": "ell_sweep", "rows": rows})
     return rows
 
 
@@ -1407,6 +1476,14 @@ def _solve_u_eq_x(prob):
     return res, err
 
 
+def _open_trace() -> None:
+    """Open a counted torch.profiler trace with a throwaway kernel and a
+    sync: a trace whose first launch is the one to count can miss it (the
+    batched assembly's B1 went unrecorded once on an H100)."""
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
 def _kernel_calls(prof) -> dict:
     """Device kernel launches of a torch.profiler trace by the name of each
     of this repository's kernels."""
@@ -1446,6 +1523,7 @@ def phase_mixed_bc():
     (res, err), solve_s = timed(lambda: _solve_u_eq_x(prob))
     launches = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _open_trace()
         (res_prof, _), prof_s = timed(lambda: _solve_u_eq_x(prob))
     busy_ms, top = _device_time(prof)
     calls = _kernel_calls(prof)
@@ -1553,6 +1631,7 @@ def phase_elasticity(bw, fp64):
     res, solve_s = timed(lambda: prob.solve())
     launches = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _open_trace()
         res_prof, prof_s = timed(lambda: prob.solve())
     busy_ms, top = _device_time(prof)
     calls = _kernel_calls(prof)
@@ -1633,6 +1712,7 @@ def phase_batched(prob, bw, fp64):
                                                     leaves_batch=(rho, None)))
     asm_launches = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _open_trace()
         timed(lambda: assemble_batched(plan, wf.diffusion(rho[0]), leaves_batch=(rho, None)))
     asm_calls = _kernel_calls(prof)
     kc = prob.bc.apply_matrix_only(kb)
@@ -1769,8 +1849,8 @@ def device_line() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "gradients",
-               "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
+ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
+               "gradients", "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
                "kernels_offsets64")
 
 
@@ -1869,6 +1949,7 @@ def run_only(only) -> int:
               "host_cost": phase_host_cost,
               "assembly_cost": phase_assembly_cost,
               "ell_timing": lambda: phase_ell_timing(*card_peaks(name)),
+              "ell_sweep": lambda: phase_ell_sweep(*card_peaks(name)),
               "gradients": phase_gradients,
               "kernels_small": phase_kernels_small,
               "mixed_bc": phase_mixed_bc,

@@ -46,12 +46,11 @@
 // bytes, plus an 8-byte mbarrier per warp; 23,200 bytes at the main path
 // (L = 15, float64), so nine CTAs (36 warps) share an SM.
 //
-// Rows past 32 slots whose 32-row stage (32 L (sizeof(T) + 4) bytes) is at
-// most 32 KiB, unless L is a multiple of 16: the same one-pass design in
-// wide_tile_kernel; in float64 L = 33-85, in float32 L = 33-127 (the
-// vector P1 tetrahedron stencil, 45; the vector Q1 hexahedron stencil, 81).
-// A 32-row tile's vals and cols are still contiguous multiples of 16
-// bytes, so the staging is the same.
+// Rows past 32 slots whose 32-row stage (32 L (sizeof(T) + 4) bytes) is
+// below 32 KiB: the same one-pass design in wide_tile_kernel; in float64
+// L = 33-85, in float32 L = 33-127 (the vector P1 tetrahedron stencil, 45;
+// the vector Q1 hexahedron stencil, 81).  A 32-row tile's vals and cols
+// are still contiguous multiples of 16 bytes, so the staging is the same.
 //   * What bounds it: memory, as above.  What holds it back: a stage grows
 //     with L, so fewer warps fit an SM as L grows, and a warp's gathers
 //     wait for its whole tile.
@@ -69,12 +68,16 @@
 //     per row (lane j's fused chain, then the shuffle tree) and of the
 //     streaming kernel past 32 slots: at every width B3 and B5 give the
 //     same bits.
-//   * Where it stops.  Rows of a multiple of 16 slots lie a multiple of 64
-//     bytes apart in the stage, so lane i's reads of row i meet in one
-//     shared-memory bank 16 or 32 lanes at a time; past a 32 KiB stage
-//     fewer than 6 warps fit an SM.  On an H100, on FEM-like vector
-//     operators, a warp per row was faster at L = 48 and 64 and past that
-//     stage (PERF.md).
+//   * Rows of an even width lie an even number of words apart in the
+//     stage, so lanes reading the same slot of their rows would meet in
+//     few shared-memory banks (16 lanes in one at a multiple of 16 slots).
+//     The lanes read such rows' slots in a rotated order instead
+//     (wide_row_sum), which puts each lane's read in a bank of its own.
+//   * Where it stops.  Past a 32 KiB stage fewer than 6 warps fit an SM.
+//     On an H100, B3 on a warp per row was faster from there on, and the
+//     wide tiles faster or level below it (chip_smoke.py --only ell_sweep,
+//     grid operators of 40^3 and 48^3 nodes: float64 L = 85 | 86, float32
+//     L = 127 | 128; PERF.md).  No operator of the repo is that wide.
 // Those rows take a warp per row (wide_kernel): lane l reads slots l,
 // l + 32, ... straight from memory, 8 warps to a 256-thread block, and the
 // lanes' shuffle tree sums them.
@@ -93,10 +96,9 @@ constexpr int kWideWarps = 1;          // warps per CTA of the wide-tile kernel
 constexpr int kWideCtas = 12;          // its CTAs per SM that the registers must allow
 constexpr int kTileRows = 32;          // rows of a warp tile: lane i sums row i
 constexpr int kMaxTileWidth = 32;      // the tile kernel's widest rows
-constexpr int kMaxWideStage = 32768;   // bytes of the wide-tile kernel's largest stage
+constexpr int kMaxWideStage = 32767;   // bytes of the wide tiles' largest stage: below 32 KiB
 constexpr int kWideBlock = 256;
 constexpr int kMaxDevices = 64;        // devices whose grid capacities are cached
-constexpr int kCacheSlots = 64;        // widths cached per device (width mod kCacheSlots)
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -115,12 +117,59 @@ __device__ __forceinline__ void tree_sum(T (&p)[G]) {
   }
 }
 
+// Lane i's sum of a row wider than 32 slots from its stage: 32 partials,
+// partial j the product of slot j with slots j + 32, j + 64, ... fused
+// onto it in turn, each 32 slots' gathers issued before their products;
+// then the tree of 32.  Rotate: the row's width is even, so the 32 lanes'
+// rows start an even number of words apart, and lanes reading the same
+// slot would meet in few shared-memory banks (all 32 in one at a multiple
+// of 32 slots).  Lane i therefore takes each 32 slots in the order i,
+// i + 1, ..., i + 31 (mod 32): word i (L + 1) + s of step s, L + 1 odd,
+// lies in a bank of its own.  Register p[s] then keeps the chain of slot
+// (s + i) mod 32, the same operations in the same order, and the rotation
+// back (by 1, 2, 4, 8 and 16 where i has that bit, so that every register
+// index is a constant) puts the partials in slot order for the tree.
+template <typename T, bool Rotate>
+__device__ __forceinline__ T wide_row_sum(const T* vt, const int* ct, const T* __restrict__ x,
+                                          int width) {
+  const int r = Rotate ? static_cast<int>(threadIdx.x % 32) : 0;
+  T p[kTileRows];
+#pragma unroll
+  for (int s = 0; s < kTileRows; ++s) p[s] = __ldg(x + ct[(s + r) & 31]);
+#pragma unroll
+  for (int s = 0; s < kTileRows; ++s) p[s] = mul_rn(vt[(s + r) & 31], p[s]);
+  for (int l0 = kTileRows; l0 < width; l0 += kTileRows) {
+    T q[kTileRows];
+#pragma unroll
+    for (int s = 0; s < kTileRows; ++s) {
+      const int l = l0 + ((s + r) & 31);
+      q[s] = l < width ? __ldg(x + ct[l]) : T(0);
+    }
+#pragma unroll
+    for (int s = 0; s < kTileRows; ++s) {
+      const int l = l0 + ((s + r) & 31);
+      if (l < width) p[s] = fma_rn(vt[l], q[s], p[s]);
+    }
+  }
+  if constexpr (Rotate) {
+#pragma unroll
+    for (int b = 1; b < kTileRows; b <<= 1) {
+      T t[kTileRows];
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) t[j] = p[(j - b) & 31];
+      const bool take = (r & b) != 0;
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) p[j] = take ? t[j] : p[j];
+    }
+  }
+  tree_sum<kTileRows / 2>(p);
+  return p[0];
+}
+
 // Lane i's sum of row i from its stage: the row's `width` values vt and
 // columns ct.  G <= 32 (the power of two >= width): all gathers, then the
-// products, then the tree of G.  G > 32 (width > 32): 32 partials, partial
-// j the product of slot j with slots j + 32, j + 64, ... fused onto it in
-// turn, each 32 slots' gathers issued before their products; then the tree
-// of 32.
+// products, then the tree of G.  G > 32 (width > 32): wide_row_sum, which
+// rotates the slots of an even width.
 template <typename T, int G>
 __device__ __forceinline__ T row_sum(const T* vt, const int* ct, const T* __restrict__ x,
                                      int width) {
@@ -133,22 +182,8 @@ __device__ __forceinline__ T row_sum(const T* vt, const int* ct, const T* __rest
     tree_sum<G / 2>(p);
     return p[0];
   } else {
-    T p[kTileRows];
-#pragma unroll
-    for (int j = 0; j < kTileRows; ++j) p[j] = __ldg(x + ct[j]);
-#pragma unroll
-    for (int j = 0; j < kTileRows; ++j) p[j] = mul_rn(vt[j], p[j]);
-    for (int l0 = kTileRows; l0 < width; l0 += kTileRows) {
-      T q[kTileRows];
-#pragma unroll
-      for (int j = 0; j < kTileRows; ++j) q[j] = l0 + j < width ? __ldg(x + ct[l0 + j]) : T(0);
-#pragma unroll
-      for (int j = 0; j < kTileRows; ++j) {
-        if (l0 + j < width) p[j] = fma_rn(vt[l0 + j], q[j], p[j]);
-      }
-    }
-    tree_sum<kTileRows / 2>(p);
-    return p[0];
+    return width & 1 ? wide_row_sum<T, false>(vt, ct, x, width)
+                     : wide_row_sum<T, true>(vt, ct, x, width);
   }
 }
 
@@ -222,7 +257,7 @@ tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
   walk_tiles<T, G, kWarps>(vals, cols, x, f, y, n_rows, width);
 }
 
-// Rows of 33 slots up to a stage of kMaxWideStage bytes, not a multiple of 16.
+// Rows of 33 slots or more whose stage is at most kMaxWideStage bytes.
 template <typename T>
 __global__ void __launch_bounds__(32 * kWideWarps, kWideCtas)
 wide_tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
@@ -250,17 +285,38 @@ wide_kernel(const T* __restrict__ vals, const int* __restrict__ cols, const T* _
   if (lane == 0 && row < n_rows) y[row] = f != nullptr ? acc - f[row] : acc;
 }
 
-// The kernel that takes rows of `width` slots of `item`-byte values (see
-// the header): past 32 slots, the wide tiles unless the lanes' rows of a
-// stage share their banks (a multiple of 16 slots) or a stage passes
-// kMaxWideStage bytes (fewer than 6 warps an SM).
-enum class Variant { kTiles, kWideTiles, kWarpPerRow };
+// The three kernels (see the header).  The library takes the one that
+// variant_of picks; tg_spmv_ell_as_* takes the one it is given, so that
+// chip_smoke.py --only ell_sweep can time them side by side.
+enum class Variant { kTiles = 0, kWideTiles = 1, kWarpPerRow = 2 };
+
+constexpr long long stage_bytes_of(long long width, size_t item) {
+  return static_cast<long long>(kTileRows) * width * static_cast<long long>(item + sizeof(int));
+}
 
 Variant variant_of(long long width, size_t item) {
   if (width <= kMaxTileWidth) return Variant::kTiles;
-  const bool fits = static_cast<size_t>(kTileRows) * width * (item + sizeof(int)) <= kMaxWideStage;
-  return fits && width % 16 != 0 ? Variant::kWideTiles : Variant::kWarpPerRow;
+  return stage_bytes_of(width, item) <= kMaxWideStage ? Variant::kWideTiles
+                                                      : Variant::kWarpPerRow;
 }
+
+// Whether kernel `v` can take rows of `width` slots: the tile kernel sums
+// at most 32, the wide-tile kernel at least 33.
+bool takes(Variant v, long long width) {
+  switch (v) {
+    case Variant::kTiles: return width <= kMaxTileWidth;
+    case Variant::kWideTiles: return width > kMaxTileWidth;
+    case Variant::kWarpPerRow: return true;
+  }
+  return false;
+}
+
+// The widest rows variant_of gives a tile kernel (float32, the smaller
+// item): the grid cache below holds a slot for each width up to it.
+constexpr int kMaxTiledWidth = kMaxWideStage / (kTileRows * (4 + 4));
+static_assert(stage_bytes_of(kMaxTiledWidth, 4) <= kMaxWideStage &&
+                  stage_bytes_of(kMaxTiledWidth + 1, 4) > kMaxWideStage,
+              "kMaxTiledWidth is the widest float32 row of the wide tiles");
 
 int warps_of(Variant v) { return v == Variant::kTiles ? kWarps : kWideWarps; }
 
@@ -273,16 +329,14 @@ int group_of(long long width) {
 // Dynamic shared memory per CTA of a tile kernel: each warp's stage (a
 // 32-row tile's vals and cols, each with 16 bytes of room to land at its
 // source's address modulo 16) and its 8-byte mbarrier; 0 for a warp per row.
-size_t smem_of(long long width, size_t item) {
-  const Variant v = variant_of(width, item);
+size_t smem_of(long long width, size_t item, Variant v) {
   if (v == Variant::kWarpPerRow) return 0;
-  return static_cast<size_t>(warps_of(v)) *
-         (static_cast<size_t>(kTileRows) * width * (item + sizeof(int)) + 32 + 8);
+  return static_cast<size_t>(warps_of(v)) * (stage_bytes_of(width, item) + 32 + 8);
 }
 
 template <typename T>
-const void* entry_of(long long width) {
-  switch (variant_of(width, sizeof(T))) {
+const void* entry_of(long long width, Variant v) {
+  switch (v) {
     case Variant::kWideTiles: return reinterpret_cast<const void*>(&wide_tile_kernel<T>);
     case Variant::kWarpPerRow: return reinterpret_cast<const void*>(&wide_kernel<T>);
     case Variant::kTiles: break;
@@ -297,12 +351,12 @@ const void* entry_of(long long width) {
   }
 }
 
-// CTAs of the tile kernel taking `width` that device `dev` holds at once: SMs x
-// the occupancy API's CTAs per SM.  The lookup also lets the instance use
-// the device's opt-in shared memory.
+// CTAs of tile kernel `v` taking `width` that device `dev` holds at once:
+// SMs x the occupancy API's CTAs per SM.  The lookup also lets the instance
+// use the device's opt-in shared memory.
 template <typename T>
-cudaError_t look_up_capacity(int dev, long long width, int* out) {
-  const void* kernel = entry_of<T>(width);
+cudaError_t look_up_capacity(int dev, long long width, Variant v, int* out) {
+  const void* kernel = entry_of<T>(width, v);
   int optin = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) {
@@ -310,48 +364,37 @@ cudaError_t look_up_capacity(int dev, long long width, int* out) {
   }
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, 32 * warps_of(variant_of(width, sizeof(T))), smem_of(width, sizeof(T)));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps_of(v),
+                                                        smem_of(width, sizeof(T), v));
   }
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   if (err == cudaSuccess) *out = sms * per_sm;
   return err;
 }
 
-// The capacity of a (device, width), looked up at the width's first launch
-// and read without a lock after it.  A slot holds one word: the width in
-// its high half, the capacity in its low half (0: empty).  Widths equal
-// modulo kCacheSlots share a slot and evict each other (then look up
-// again); a race looks up twice and stores the same word.
+// The grid of a launch of kernel `v` on the current device: a tile
+// kernel's CTAs (at most one warp per tile), or the warp-per-row kernel's
+// blocks; minus a CUDA error code on failure.  The capacity of each
+// (device, width) that variant_of gives the tile kernels is looked up at
+// its first launch and read without a lock after it (a race looks up
+// twice and stores the same value); a width only a forced launch gives a
+// tile kernel is looked up every time.
 template <typename T>
-std::atomic<unsigned long long>& capacity_slot(int dev, long long width) {
-  static std::atomic<unsigned long long> known[kMaxDevices][kCacheSlots];
-  return known[dev][width % kCacheSlots];
-}
-
-// The grid of a launch on the current device: a tile kernel's CTAs (at
-// most one warp per tile), or the warp-per-row kernel's blocks; minus a
-// CUDA error code on failure.
-template <typename T>
-long long grid_of(long long n_rows, long long width) {
-  const Variant v = variant_of(width, sizeof(T));
+long long grid_of(long long n_rows, long long width, Variant v) {
   if (v == Variant::kWarpPerRow) {
     return static_cast<long long>(tg_blocks(n_rows * 32, kWideBlock));
   }
+  static std::atomic<int> known[kMaxDevices][kMaxTiledWidth + 1];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  const unsigned long long key = static_cast<unsigned long long>(width) << 32;
-  const unsigned long long word =
-      dev < kMaxDevices ? capacity_slot<T>(dev, width).load(std::memory_order_relaxed) : 0;
-  int cap = (word >> 32) << 32 == key ? static_cast<int>(word & 0xffffffffu) : 0;
+  const bool cached =
+      dev < kMaxDevices && width <= kMaxTiledWidth && v == variant_of(width, sizeof(T));
+  int cap = cached ? known[dev][width].load(std::memory_order_relaxed) : 0;
   if (cap == 0) {
-    err = look_up_capacity<T>(dev, width, &cap);
+    err = look_up_capacity<T>(dev, width, v, &cap);
     if (err != cudaSuccess) return -static_cast<long long>(err);
-    if (dev < kMaxDevices) {
-      capacity_slot<T>(dev, width).store(key | static_cast<unsigned>(cap),
-                                         std::memory_order_relaxed);
-    }
+    if (cached) known[dev][width].store(cap, std::memory_order_relaxed);
   }
   const long long warps = (n_rows + kTileRows - 1) / kTileRows;
   const int per_cta = warps_of(v);
@@ -360,10 +403,12 @@ long long grid_of(long long n_rows, long long width) {
 
 template <typename T>
 int launch(const void* vals, const void* cols, const void* x, const void* f, void* y,
-           long long n_rows, long long width, void* stream) {
+           long long n_rows, long long width, Variant v, void* stream) {
   if (n_rows <= 0) return 0;
-  if (width < 1 || width > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const long long grid = grid_of<T>(n_rows, width);
+  if (width < 1 || width > INT32_MAX || !takes(v, width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long grid = grid_of<T>(n_rows, width, v);
   if (grid < 0) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(-grid);
@@ -374,52 +419,82 @@ int launch(const void* vals, const void* cols, const void* x, const void* f, voi
   const auto* ff = static_cast<const T*>(f);
   auto* yy = static_cast<T*>(y);
   int w = static_cast<int>(width);
-  const Variant v = variant_of(width, sizeof(T));
   const unsigned threads = v == Variant::kWarpPerRow ? kWideBlock : 32 * warps_of(v);
   // the instance is picked at run time: launch it by its entry
   void* args[] = {&vv, &cc, &xx, &ff, &yy, &n_rows, &w};
   const cudaError_t err =
-      cudaLaunchKernel(entry_of<T>(width), dim3(static_cast<unsigned>(grid)), dim3(threads), args,
-                       smem_of(width, sizeof(T)), static_cast<cudaStream_t>(stream));
+      cudaLaunchKernel(entry_of<T>(width, v), dim3(static_cast<unsigned>(grid)), dim3(threads),
+                       args, smem_of(width, sizeof(T), v), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) cudaGetLastError();
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// The grid and the dynamic shared memory per CTA of a launch at (n_rows,
-// width) on the current device, for the design figures; the grid is minus
-// a CUDA error code on failure.
+// The kernel (0 tiles, 1 wide tiles, 2 a warp per row), the grid and the
+// dynamic shared memory per CTA of a launch at (n_rows, width) on the
+// current device, for the design figures; the grid is minus a CUDA error
+// code on failure.
+TG_EXPORT int tg_ell_variant_f32(long long width) {
+  return static_cast<int>(variant_of(width, 4));
+}
+
+TG_EXPORT int tg_ell_variant_f64(long long width) {
+  return static_cast<int>(variant_of(width, 8));
+}
+
 TG_EXPORT int tg_ell_grid_f32(long long n_rows, long long width) {
-  return static_cast<int>(grid_of<float>(n_rows, width));
+  return static_cast<int>(grid_of<float>(n_rows, width, variant_of(width, 4)));
 }
 
 TG_EXPORT int tg_ell_grid_f64(long long n_rows, long long width) {
-  return static_cast<int>(grid_of<double>(n_rows, width));
+  return static_cast<int>(grid_of<double>(n_rows, width, variant_of(width, 8)));
 }
 
-TG_EXPORT int tg_ell_smem_f32(long long width) { return static_cast<int>(smem_of(width, 4)); }
+TG_EXPORT int tg_ell_smem_f32(long long width) {
+  return static_cast<int>(smem_of(width, 4, variant_of(width, 4)));
+}
 
-TG_EXPORT int tg_ell_smem_f64(long long width) { return static_cast<int>(smem_of(width, 8)); }
+TG_EXPORT int tg_ell_smem_f64(long long width) {
+  return static_cast<int>(smem_of(width, 8, variant_of(width, 8)));
+}
 
 TG_EXPORT int tg_spmv_ell_f32(const void* vals, const void* cols, const void* x, void* y,
                               long long n_rows, long long width, void* stream) {
-  return launch<float>(vals, cols, x, nullptr, y, n_rows, width, stream);
+  return launch<float>(vals, cols, x, nullptr, y, n_rows, width, variant_of(width, 4), stream);
 }
 
 TG_EXPORT int tg_spmv_ell_f64(const void* vals, const void* cols, const void* x, void* y,
                               long long n_rows, long long width, void* stream) {
-  return launch<double>(vals, cols, x, nullptr, y, n_rows, width, stream);
+  return launch<double>(vals, cols, x, nullptr, y, n_rows, width, variant_of(width, 8), stream);
 }
 
 TG_EXPORT int tg_residual_ell_f32(const void* vals, const void* cols, const void* u,
                                   const void* f, void* y, long long n_rows, long long width,
                                   void* stream) {
-  return launch<float>(vals, cols, u, f, y, n_rows, width, stream);
+  return launch<float>(vals, cols, u, f, y, n_rows, width, variant_of(width, 4), stream);
 }
 
 TG_EXPORT int tg_residual_ell_f64(const void* vals, const void* cols, const void* u,
                                   const void* f, void* y, long long n_rows, long long width,
                                   void* stream) {
-  return launch<double>(vals, cols, u, f, y, n_rows, width, stream);
+  return launch<double>(vals, cols, u, f, y, n_rows, width, variant_of(width, 8), stream);
+}
+
+// spmv_ell on the kernel `variant` (as tg_ell_variant_*), whatever
+// variant_of would pick: for timing the kernels against one another.
+TG_EXPORT int tg_spmv_ell_as_f32(const void* vals, const void* cols, const void* x, void* y,
+                                 long long n_rows, long long width, long long variant,
+                                 void* stream) {
+  if (variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(vals, cols, x, nullptr, y, n_rows, width, static_cast<Variant>(variant),
+                      stream);
+}
+
+TG_EXPORT int tg_spmv_ell_as_f64(const void* vals, const void* cols, const void* x, void* y,
+                                 long long n_rows, long long width, long long variant,
+                                 void* stream) {
+  if (variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(vals, cols, x, nullptr, y, n_rows, width, static_cast<Variant>(variant),
+                      stream);
 }

@@ -11,11 +11,11 @@ builds it so); the kernels rely on that and do not test slots.
 * :func:`spmv_ell` / :func:`galerkin_residual_ell` — the **broadcast**
   plan: every row gathers from the whole of ``x``.  The kernel makes one
   pass over 32-row warp tiles: each warp bulk-copies its tile's vals and
-  cols into shared memory, and lane i sums row i.  Wider rows whose
-  32-row stage fits :data:`ELL_MAX_WIDE_STAGE` bytes take the same design
-  with one warp per CTA, unless their width is a multiple of 16; the
-  others take a warp per row (:func:`ell_launch_shape`, header of
-  ``csrc/spmv_ell.cu``).
+  cols into shared memory, and lane i sums row i.  Rows past 32 slots
+  whose 32-row stage is below 32 KiB take the same design with one warp
+  per CTA; still wider rows take a warp per row (header of
+  ``csrc/spmv_ell.cu``; the library reports its choice,
+  ``tg_ell_variant_f32/f64``).
 * :func:`spmv_ell_stream` / :func:`galerkin_residual_ell_stream` — the
   **streaming** plan: a :class:`StreamPlan` (host precompute on the static
   column table) rebases the columns of each ``block_n``-row block into the
@@ -92,7 +92,6 @@ __all__ = [
     "stream_runs",
     "check_stream_fits",
     "autotune_stream",
-    "ell_launch_shape",
 ]
 
 # streaming defaults (see the header of csrc/spmv_ell_stream.cu)
@@ -101,32 +100,6 @@ N_BUFFERS = 4           # default stage depth, or the deepest that fits below it
 MAX_BUFFERS = 8         # kMaxBuffers in the .cu
 TILE_ROWS = 128         # rows per vals/cols/f stage (kTileRows in the .cu)
 _LANE = 128             # window length granularity (the JAX plan's, kept for equal plans)
-
-# broadcast-plan kernels (keep in step with csrc/spmv_ell.cu)
-ELL_TILE_ROWS = 32              # rows of a warp tile (kTileRows)
-ELL_MAX_TILE_WIDTH = 32         # widest rows of the tile kernel (kMaxTileWidth)
-ELL_MAX_WIDE_STAGE = 32768      # bytes of the wide-tile kernel's largest stage (kMaxWideStage)
-
-
-def ell_launch_shape(width: int, itemsize: int) -> tuple[str, int, int]:
-    """``(kernel, warps per CTA, dynamic shared memory per CTA in bytes)``
-    of a B3/B4 launch on rows of ``width`` slots with ``itemsize``-byte
-    values, as ``variant_of`` and ``smem_of`` in ``csrc/spmv_ell.cu`` choose
-    it: the tile kernel (4 warps) up to 32 slots; past them the wide-tile
-    kernel (1 warp) while a 32-row tile's vals and int32 cols fit
-    :data:`ELL_MAX_WIDE_STAGE` bytes, unless ``width`` is a multiple of 16;
-    otherwise a warp per row (256-thread blocks, no shared memory).  A tile
-    kernel's warp stages a tile, with 16 bytes of room for each array,
-    beside an 8-byte mbarrier."""
-    stage = ELL_TILE_ROWS * width * (itemsize + 4)
-    if width <= ELL_MAX_TILE_WIDTH:
-        kernel, warps = "tile_kernel", 4
-    elif stage <= ELL_MAX_WIDE_STAGE and width % 16:
-        kernel, warps = "wide_tile_kernel", 1
-    else:
-        return "wide_kernel", 8, 0
-    return kernel, warps, warps * (stage + 32 + 8)
-
 
 def _check_shapes(name, vals, cols, *vecs):
     if vals.dim() != 2 or tuple(cols.shape) != tuple(vals.shape):

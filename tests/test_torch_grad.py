@@ -32,8 +32,9 @@ from repro_torch.kernels import (  # noqa: E402
     spmv_ell_stream,
 )
 
-# (N, L, block_n): ragged N against block_n and 32, L = 1, one block, several
-SHAPES = [(1, 1, 128), (37, 5, 16), (129, 15, 64), (300, 7, 128)]
+# (N, L, block_n): ragged N against block_n and 32, L = 1, one block, several,
+# rows past 32 slots
+SHAPES = [(1, 1, 128), (37, 5, 16), (129, 15, 64), (300, 7, 128), (97, 45, 64)]
 KINDS = ["spmv", "residual", "spmv_stream", "residual_stream"]
 
 

@@ -36,11 +36,6 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.seg_reduce import padded_table  # noqa: E402
-from repro_torch.kernels.spmv_ell import (  # noqa: E402
-    ELL_MAX_TILE_WIDTH,
-    ELL_MAX_WIDE_STAGE,
-    ell_launch_shape,
-)
 
 DTYPES = [(np.float32, torch.float32, 2e-4), (np.float64, torch.float64, 1e-12)]
 SIZES = [1, 7, 129, 700]
@@ -122,8 +117,11 @@ def test_padded_table_gather_equals_plain_reduce(rows):
 
 
 @pytest.mark.parametrize("np_dt,t_dt,tol", DTYPES)
+# widths past 32: the vector P1 tetrahedron (45) and Q1 hexahedron (81)
+# stencils, and each side of the kernel's hand-overs in either dtype
 @pytest.mark.parametrize("n,width", [(1, 1), (7, 5), (129, 15), (700, 9), (97, 33), (129, 45),
-                                     (65, 81)])
+                                     (65, 81), (33, 48), (40, 64), (31, 85), (45, 86), (17, 128),
+                                     (9, 129), (50, 201)])
 def test_spmv_and_residual_match_jax(n, width, np_dt, t_dt, tol):
     rng = np.random.default_rng(n + width)
     vals = rng.normal(size=(n, width)).astype(np_dt)
@@ -142,7 +140,9 @@ def test_spmv_and_residual_match_jax(n, width, np_dt, t_dt, tol):
         np.testing.assert_allclose(got_r.numpy(), np.asarray(want), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("n,width,seed", [(2, 1, 0), (97, 3, 1), (256, 6, 2), (400, 4, 3)])
+@pytest.mark.parametrize("n,width,seed", [(2, 1, 0), (97, 3, 1), (256, 6, 2), (400, 4, 3),
+                                          (97, 45, 4), (65, 81, 5), (33, 86, 6), (40, 128, 7),
+                                          (20, 201, 8)])
 def test_ell_padding_invariant(n, width, seed):
     """Zero-valued slots add nothing whatever valid column they name, so
     self-referencing padded columns never alias real entries."""
@@ -159,47 +159,6 @@ def test_ell_padding_invariant(n, width, seed):
     np.testing.assert_allclose(spmv_ell(vals_z, cols_alias, x).numpy(), want.numpy(), atol=1e-12)
     np.testing.assert_allclose(galerkin_residual_ell(vals_z, cols_alias, x, f).numpy(),
                                (want - f).numpy(), atol=1e-12)
-
-
-# (width, itemsize) -> (kernel, warps per CTA, shared memory per CTA), by hand:
-# a warp's stage is 32·L·(itemsize + 4) + 32 bytes, beside an 8-byte mbarrier
-LAUNCH_SHAPES = {
-    (15, 8): ("tile_kernel", 4, 23_200),                          # 3D P1
-    (32, 8): ("tile_kernel", 4, 4 * (32 * 32 * 12 + 40)),
-    (32, 4): ("tile_kernel", 4, 32_928),
-    (33, 8): ("wide_tile_kernel", 1, 12_712),
-    (33, 4): ("wide_tile_kernel", 1, 32 * 33 * 8 + 40),
-    (45, 8): ("wide_tile_kernel", 1, 17_320),                     # vector P1 tets
-    (45, 4): ("wide_tile_kernel", 1, 11_560),
-    (47, 8): ("wide_tile_kernel", 1, 32 * 47 * 12 + 40),
-    (48, 8): ("wide_kernel", 8, 0),                               # a multiple of 16
-    (48, 4): ("wide_kernel", 8, 0),
-    (49, 8): ("wide_tile_kernel", 1, 18_856),
-    (64, 8): ("wide_kernel", 8, 0),
-    (65, 4): ("wide_tile_kernel", 1, 16_680),
-    (81, 8): ("wide_tile_kernel", 1, 31_144),                     # vector Q1 hexes
-    (81, 4): ("wide_tile_kernel", 1, 20_776),
-    (85, 8): ("wide_tile_kernel", 1, 32_680),                     # a stage of 32,640 bytes
-    (86, 8): ("wide_kernel", 8, 0),                               # 33,024: past 32 KiB
-    (86, 4): ("wide_tile_kernel", 1, 32 * 86 * 8 + 40),
-    (127, 4): ("wide_tile_kernel", 1, 32_552),                    # 32,512
-    (128, 4): ("wide_kernel", 8, 0),
-    (129, 4): ("wide_kernel", 8, 0),                              # 33,024
-}
-
-
-@pytest.mark.parametrize("width,itemsize", sorted(LAUNCH_SHAPES))
-def test_ell_launch_shape(width, itemsize):
-    assert ell_launch_shape(width, itemsize) == LAUNCH_SHAPES[width, itemsize]
-
-
-@pytest.mark.parametrize("itemsize,last", [(8, 85), (4, 127)])
-def test_ell_launch_shape_variants_follow_the_constants(itemsize, last):
-    assert ELL_MAX_TILE_WIDTH == 32 and ELL_MAX_WIDE_STAGE == 32 * 1024
-    kinds = {w: ell_launch_shape(w, itemsize)[0] for w in range(1, 400)}
-    assert {w for w, k in kinds.items() if k == "tile_kernel"} == set(range(1, 33))
-    assert ({w for w, k in kinds.items() if k == "wide_tile_kernel"}
-            == {w for w in range(33, last + 1) if w % 16})
 
 
 # ---------------------------------------------------------------------------
