@@ -13,9 +13,12 @@ Phases, one JSON line each:
    spills for each kernel of each source;
 2. kernels_small — every kernel against its plain PyTorch version on the
    card at ragged shapes, float32 and float64 (B1/B2 also batched, B ∈
-   {1, 3}; B3/B4 at widths 1-129, each side of every hand-over between
-   their three kernels that the library reports, with N not a multiple of
-   32 and operands one element off 16-byte alignment; B3 and B4 bit-equal
+   {1, 3}; B2 bit for bit against the ordered plain sum with rows that
+   get nothing, rows of 1,000 slots and past the kernel's stage, and
+   ragged row and slot counts; B3/B4 at widths 1-129, each side of
+   every hand-over between their three kernels that the library reports,
+   with N not a multiple of 32 and operands one element off 16-byte
+   alignment; B3 and B4 bit-equal
    to B5 and B6 at L = 33, 45, 64 and 81; the streaming kernels at the
    JAX package's sweep shapes, pipeline depths 1-3, and on plans that take
    each path of the kernel's schedule at every depth the wrapper accepts:
@@ -50,31 +53,37 @@ Phases, one JSON line each:
    time over 25 launches, the plain version's and one PyTorch library
    call's time, and the bound (B3/B4 also with their grid, rows per tile,
    tiles in flight, shared memory and the bytes they request; B5/B6 with
-   their CTAs, x-ring length, shared memory and bytes moved);
-9. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
+   their CTAs, x-ring length, shared memory and bytes moved; B2 with the
+   device bytes of its table);
+9. reduce_timing — B2 at n = 64 on the stiffness table, on the load table
+   (L2 flushed before each launch) and batched (B = 8) against 8 single
+   launches: bit for bit against the ordered plain sum on the slot table,
+   times beside the plain version and ``index_add_``, bound by the bytes
+   of the Reduce's work;
+10. second_entry — ``AdvectionDiffusionProblem(unit_square_tri(256))``
    with BiCGSTAB;
-10. gradients — at n = 64 the gradient of a Newmark rollout loss with
+11. gradients — at n = 64 the gradient of a Newmark rollout loss with
    respect to u0 through ``backend="ell"`` and ``"ell_stream"`` against
    ``backend="csr"`` (1e-8 relative), and ``torch.autograd.gradcheck`` of
    B1's and B3-B6's autograd Functions in float64 at small N (B1's
    gradient also against the plain version's, 1e-12);
-11. mixed_bc — ``MixedBCPoisson(disk_tri(256))`` (197,377 DoFs):
+12. mixed_bc — ``MixedBCPoisson(disk_tri(256))`` (197,377 DoFs):
    Dirichlet, Neumann and Robin parts, BiCGSTAB; the volume Map is B1 and
    the volume and facet Reduces B2 (launch counts and a profiler trace),
    error against u = x ≤ 1e-6, a scipy residual on the host, and the JAX
    package's numbers at n_r = 14;
-12. elasticity — ``ElasticityProblem(hollow_cube_tet(48))`` (316,446
+13. elasticity — ``ElasticityProblem(hollow_cube_tet(48))`` (316,446
    DoFs, ELL width 45): BiCGSTAB on ``ell``, a scipy residual, the six
    rigid-body modes through B3 on the un-condensed K, the JAX package's
    numbers at n = 4 and 8, and B3/B4's times at L = 45 and on grid
    operators on each side of the wide-tile kernel's limits;
-13. batched — at n = 64, ``solve_coeff_batch`` over 8 coefficient fields
+14. batched — at n = 64, ``solve_coeff_batch`` over 8 coefficient fields
    (one batched B1 and one batched B2 launch) and ``solve_batch`` over 8
    Gaussian right-hand sides, each instance against its single solve; the
    batched B1/B2 timed against their plain versions and 8 single launches;
-14. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+15. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-15. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+16. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -89,7 +98,8 @@ operator (L = 8) and grid operators on each side of the wide tiles'
 hand-over, built for the phase), ``ell_sweep`` (B3 on the wide tiles and
 on a warp per row side by side, at L = 45 and 81 on the repo's vector
 operators and at L = 45-256 on grid operators: where the hand-over
-belongs) and ``host_cost`` (the ELL wrappers'
+belongs), ``reduce_timing`` (B2 on the n = 64 stiffness and load tables
+and batched, phase 9) and ``host_cost`` (the ELL wrappers'
 host time per call and the n = 64 CG loop's wall time per iteration),
 ``assembly_cost`` (the wall time of a warm n = 64 assembly) and
 ``cold_path`` (reference, main_path and transient in a fresh process: the
@@ -234,21 +244,46 @@ def card_fp32(name: str) -> float:
     return 67e12  # H100 SXM, H200
 
 
-def time_ms(fn, reps: int = 25) -> float:
+def time_ms(fn, reps: int = 25, flush=None) -> float:
     """Median device time of ``fn`` over ``reps`` launches, from CUDA
     events around each; the card is kept busy while the host enqueues, so
-    host overhead between launches does not enter the times."""
+    host overhead between launches does not enter the times.  ``flush``,
+    if given, runs before each launch, outside its events (an L2 flush)."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     torch.cuda._sleep(50_000_000)
     for start, end in events:
+        if flush is not None:
+            flush()
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def ordered_reduce_ref():
+    """``seg_reduce_ordered_ref`` of this checkout's ``ref.py`` (it imports
+    torch alone), also when ``--src`` puts another commit's package on the
+    path: the kernel of either commit is held to the same ordered sum."""
+    import importlib.util
+
+    path = ROOT / "src" / "repro_torch" / "kernels" / "ref.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.seg_reduce_ordered_ref
+
+
+def segments(perm, rows_sorted, n_rows):
+    """A routing's segment table on the card, ``(slots, ptr)``: row ``n``'s
+    local slots are ``slots[ptr[n]:ptr[n+1]]`` in sorted order (built here
+    from the routing, apart from the package's builder)."""
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(rows_sorted, minlength=n_rows))])
+    return (torch.as_tensor(perm, dtype=torch.int64, device="cuda"),
+            torch.as_tensor(ptr, dtype=torch.int64, device="cuda"))
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -349,6 +384,7 @@ def phase_kernels_small():
     bits = _stream_bit_cases()
     cases += _stream_schedule_cases(worst)
     cases += _batched_cases(worst)
+    cases += _reduce_cases(worst)
     # a block whose columns reach 30,000 rows ahead: a 240 KB float64 window
     cols = np.repeat(np.arange(40_000, dtype=np.int32)[:, None], 3, axis=1)
     cols[::1024, 0] = np.minimum(np.arange(0, 40_000, 1024) + 30_000, 39_999)
@@ -468,6 +504,67 @@ def _batched_cases(worst) -> int:
                 err, scale = max_err(seg_reduce(src, table, batch=True),
                                      seg_reduce_ref(src, table.rows, n, batch=True))
                 check(err <= tol * scale, f"batched seg_reduce B={batch} rows={n} {dtype}: {err}")
+                worst["seg_reduce"] = max(worst["seg_reduce"], err / scale)
+                cases += 1
+    return cases
+
+
+def _reduce_rows(rng, case: str) -> tuple[np.ndarray, int]:
+    """The row of each local slot (unsorted) and the row count of one B2
+    case of ``REDUCE_CASES``."""
+    if case == "empty_rows":   # every third row and the last 600 get nothing
+        rows = rng.choice(np.flatnonzero(np.arange(403) % 3), size=2_501)
+        return rows, 1_003
+    if case.startswith("long_row_"):   # row 200 among short ones
+        n, long = 517, int(case.rsplit("_", 1)[1])
+        short = rng.integers(0, n - 1, size=1_551)
+        short[short >= 200] += 1
+        return rng.permutation(np.concatenate([short, np.full(long, 200)])), n
+    n = int(case.rsplit("_", 1)[1])    # ragged: rows and slots no multiple of 32
+    return rng.integers(0, n, size=3 * n + 1), n
+
+
+# B2 cases beside the ragged ones of kernels_small: rows with no slots
+# (runs of them), one row of 1,000 slots, one of the stage (2,048) and one
+# past it (the kernel's path from global memory), row counts and slot
+# counts that are no multiple of 32 or of a run
+REDUCE_CASES = ("empty_rows", "long_row_1000", "long_row_2048", "long_row_2049",
+                "long_row_4133", "ragged_1", "ragged_31", "ragged_33", "ragged_257",
+                "ragged_4102")
+
+
+def _reduce_cases(worst) -> int:
+    """B2 on each of ``REDUCE_CASES``, float32 and float64, one instance
+    and B ∈ {1, 3}: bit for bit against the ordered plain sum on the slot
+    table, and against the plain version within the tolerance."""
+    from repro_torch.kernels import _cuda, seg_reduce
+    from repro_torch.kernels.ref import seg_reduce_ref
+    from repro_torch.kernels.seg_reduce import ReduceTable
+
+    ordered = ordered_reduce_ref()
+    stage = _cuda.query("seg_reduce", "tg_seg_reduce_stage_slots", "cuda")
+    cases = 0
+    for case in REDUCE_CASES:
+        rng = np.random.default_rng(len(case) + cases)
+        rows, n = _reduce_rows(rng, case)
+        perm = np.argsort(rows, kind="stable")
+        table = ReduceTable(perm, rows[perm], rows, n, "cuda")
+        slots, ptr = segments(perm, rows[perm], n)
+        run_slots = (table.ptr[table.runs[1:].long()] - table.ptr[table.runs[:-1].long()]).max()
+        check((int(run_slots) > stage) == case.endswith(("2049", "4133")),
+              f"B2 {case}: largest run {int(run_slots)} slots against a stage of {stage}")
+        for dtype in (torch.float32, torch.float64):
+            for batch in (None, 1, 3):
+                shape = rows.shape if batch is None else (batch, rows.shape[0])
+                src = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device="cuda")
+                got = seg_reduce(src, table, batch=batch is not None)
+                want = ordered(src, slots, ptr, batch=batch is not None)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"B2 {case} B={batch} {dtype}: not bit-equal to the ordered sum")
+                err, scale = max_err(got, seg_reduce_ref(src, table.rows, n,
+                                                         batch=batch is not None))
+                check(err <= TOL[dtype] * scale, f"B2 {case} B={batch} {dtype}: {err}")
                 worst["seg_reduce"] = max(worst["seg_reduce"], err / scale)
                 cases += 1
     return cases
@@ -1197,6 +1294,87 @@ def bounder(bw, fp64):
     return bound
 
 
+def reduce_bytes(table, batch: int) -> int:
+    """The bytes of B2's work, whatever reads them: the source read and the
+    output written once per instance (8 B each), one int32 slot index per
+    contribution and one int32 offset per row."""
+    return 8 * batch * (table.n_src + table.n_rows) + 4 * table.n_src + 4 * (table.n_rows + 1)
+
+
+def reduce_width(table) -> int:
+    """The most contributions any row of a B2 table receives."""
+    counts = torch.bincount(table.rows, minlength=table.n_rows)
+    return int(counts.max()) if counts.numel() else 0
+
+
+def phase_reduce_timing(prob, bw, fp64) -> dict:
+    """B2 alone (``--only``; also in the full run) at n = 64: on the
+    stiffness table, on the load table (its ~78 MB working set is near the
+    50 MB L2, so L2 is flushed before each launch) and batched, B = 8, on
+    the stiffness table against 8 single launches; each bit for bit against
+    the ordered plain sum on the slot table (and the batched one against
+    its single launches), and timed beside its plain version and
+    ``index_add_``.  The bound reads only ``n_src`` and ``n_rows``, so the
+    phase runs on another commit's package too (``--src``)."""
+    from repro_torch.kernels import seg_reduce
+    from repro_torch.kernels.ref import seg_reduce_ref
+
+    if prob is None:
+        from repro_torch.core import unit_cube_tet
+        from repro_torch.fem import PoissonProblem
+
+        prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    plan, ordered, bound = prob.plan, ordered_reduce_ref(), bounder(bw, fp64)
+    vr = plan.vec_routing
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for label, table, (perm, rows_sorted), batch, flush in (
+            ("stiffness", plan.mat_reduce, (plan.mat_routing.perm, plan.mat_routing.seg_ids),
+             None, None),
+            ("load", plan.vec_reduce, (vr.perm, vr.touched[vr.seg_ids]), None, l2.zero_),
+            ("stiffness_batched", plan.mat_reduce,
+             (plan.mat_routing.perm, plan.mat_routing.seg_ids), BATCH, None)):
+        n_inst = batch or 1
+        shape = (table.n_src,) if batch is None else (batch, table.n_src)
+        src = torch.randn(shape, generator=gen, dtype=torch.float64, device="cuda")
+        is_b = batch is not None
+        got = seg_reduce(src, table, batch=is_b)
+        slots, ptr = segments(perm, rows_sorted, table.n_rows)
+        bits = bool(torch.equal(got, ordered(src, slots, ptr, batch=is_b)))
+        del slots, ptr
+        err, scale = max_err(got, seg_reduce_ref(src, table.rows, table.n_rows, batch=is_b))
+        nbytes = reduce_bytes(table, n_inst)
+        b_ms, b_by = bound(nbytes, n_inst * table.n_src)
+        row = {"shape": f"rows={table.n_rows} src={table.n_src}", "B": n_inst,
+               "bit_equal_ordered": bits, "max_abs_err": err, "scale": scale,
+               "l2_flushed": flush is not None,
+               "ms": time_ms(lambda: seg_reduce(src, table, batch=is_b), flush=flush),
+               "plain_ms": time_ms(lambda: seg_reduce_ref(src, table.rows, table.n_rows,
+                                                          batch=is_b), flush=flush),
+               "library_ms": time_ms(lambda: torch.zeros(got.shape, dtype=src.dtype,
+                                                         device="cuda").index_add_(
+                   -1, table.rows, src), flush=flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        if is_b:
+            singles = torch.stack([seg_reduce(src[b], table) for b in range(batch)])
+            row["bit_equal_single"] = bool(torch.equal(got, singles))
+            row["single_x_B_ms"] = time_ms(lambda: [seg_reduce(src[b], table)
+                                                    for b in range(batch)])
+            del singles
+        row["share"] = row["bound_ms"] / row["ms"]
+        rows[label] = row
+        del src, got
+    del l2
+    torch.cuda.empty_cache()
+    emit({"phase": "reduce_timing", "n": MAIN_N, "rows": rows})
+    for label, row in rows.items():
+        check(row["bit_equal_ordered"] and row.get("bit_equal_single", True),
+              f"reduce_timing {label}: not bit-equal {row}")
+        check(row["max_abs_err"] <= 1e-12 * row["scale"], f"reduce_timing {label}: {row}")
+    return rows
+
+
 def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
     from repro_torch import telemetry
     from repro_torch.core import csr_to_ell, unit_square_tri
@@ -1240,10 +1418,12 @@ def phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64):
     err, scale = max_err(vals, plain)
     check(err <= 1e-12 * scale, f"seg_reduce: {err}")
     src, seg = k_local_tet.reshape(-1), table.rows
-    nbytes = 4 * table.idx.numel() + 8 * (table.n_src + table.n_rows)
+    nbytes = reduce_bytes(table, 1)
     b_ms, b_by = bound(nbytes, table.n_src)
     rows["seg_reduce"] = {
-        "shape": f"rows={table.n_rows} L={table.idx.shape[1]} src={table.n_src}",
+        "shape": f"rows={table.n_rows} L={reduce_width(table)} src={table.n_src}",
+        "table_device_bytes": sum(t.numel() * t.element_size()
+                                  for t in (table.slots, table.ptr, table.runs)),
         "max_abs_err": err, "scale": scale,
         "ms": time_ms(lambda: seg_reduce(k_local_tet, table)),
         "plain_ms": time_ms(lambda: seg_reduce_ref(k_local_tet, table.rows, table.n_rows)),
@@ -1753,7 +1933,7 @@ def phase_batched(prob, bw, fp64):
     bound = bounder(bw, fp64)
     src = local_b.reshape(BATCH, -1)
     b1_bytes = 8 * (coords.numel() + rho_e.numel() + local_b.numel())
-    b2_bytes = 4 * table.idx.numel() + 8 * BATCH * (table.n_src + table.n_rows)
+    b2_bytes = reduce_bytes(table, BATCH)
     b1 = {"shape": f"B={BATCH} tet E={e}", "max_abs_err": err1, "scale": scale1,
           "ms": time_ms(lambda: local_stiffness_p1(coords, rho_e)),
           "single_x_B_ms": time_ms(lambda: [local_stiffness_p1(coords, rho_e[b])
@@ -1762,7 +1942,7 @@ def phase_batched(prob, bw, fp64):
           "library_ms": None, "bytes": b1_bytes,
           "launches": asm_launches["local_stiffness_p1"]}
     b1["bound_ms"], b1["bound_by"] = bound(b1_bytes, P1_FLOPS[3] * e * BATCH)
-    b2 = {"shape": f"B={BATCH} rows={table.n_rows} L={table.idx.shape[1]} src={table.n_src}",
+    b2 = {"shape": f"B={BATCH} rows={table.n_rows} L={reduce_width(table)} src={table.n_src}",
           "max_abs_err": err2, "scale": scale2,
           "ms": time_ms(lambda: seg_reduce(local_b, table, batch=True)),
           "single_x_B_ms": time_ms(lambda: [seg_reduce(local_b[b], table)
@@ -1850,7 +2030,7 @@ def device_line() -> tuple[str, str]:
 
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
-               "gradients", "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
+               "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
                "kernels_offsets64")
 
 
@@ -1899,6 +2079,7 @@ def main(argv=None) -> int:
     theta_lhs, transient_launches = phase_transient(prob)
     k_stream, stream_launches = phase_stream_solve()
     rows = phase_kernels_main(prob, k, theta_lhs, k_stream, bw, fp64)
+    phase_reduce_timing(prob, bw, fp64)
     phase_second_entry()
     phase_gradients()
     mixed = phase_mixed_bc()
@@ -1950,6 +2131,7 @@ def run_only(only) -> int:
               "assembly_cost": phase_assembly_cost,
               "ell_timing": lambda: phase_ell_timing(*card_peaks(name)),
               "ell_sweep": lambda: phase_ell_sweep(*card_peaks(name)),
+              "reduce_timing": lambda: phase_reduce_timing(None, *card_peaks(name)),
               "gradients": phase_gradients,
               "kernels_small": phase_kernels_small,
               "mixed_bc": phase_mixed_bc,

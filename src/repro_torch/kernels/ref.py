@@ -9,6 +9,7 @@ import torch
 __all__ = [
     "local_stiffness_p1_ref",
     "seg_reduce_ref",
+    "seg_reduce_ordered_ref",
     "spmv_ell_ref",
     "galerkin_residual_ell_ref",
     "spmv_ell_stream_ref",
@@ -43,6 +44,23 @@ def seg_reduce_ref(src: torch.Tensor, rows: torch.Tensor, n_rows: int,
     v = src.reshape(src.shape[0], -1) if batch else src.reshape(-1)
     out = torch.zeros((*v.shape[:-1], n_rows), dtype=v.dtype, device=v.device)
     return out.index_add_(-1, rows, v)
+
+
+def seg_reduce_ordered_ref(src: torch.Tensor, slots: torch.Tensor, ptr: torch.Tensor,
+                           batch: bool = False) -> torch.Tensor:
+    """Sparse-Reduce on a segment table in the kernel's order: row ``n`` is
+    ``0 + src[slots[ptr[n]]] + src[slots[ptr[n] + 1]] + ...``, one add at a
+    time from the left, so a kernel that sums each row in slot order gives
+    these values bit for bit; with ``batch``, ``src (B, ...)`` reduces
+    instance by instance onto ``(B, rows)``."""
+    v = src.reshape(src.shape[0], -1) if batch else src.reshape(-1)
+    slots, ptr = slots.long(), ptr.long()
+    start, count = ptr[:-1], ptr[1:] - ptr[:-1]
+    out = torch.zeros((*v.shape[:-1], start.shape[0]), dtype=v.dtype, device=v.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        live = torch.nonzero(count > k).squeeze(1)
+        out[..., live] += v[..., slots[start[live] + k]]
+    return out
 
 
 def spmv_ell_ref(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

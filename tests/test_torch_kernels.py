@@ -102,8 +102,8 @@ def test_seg_reduce_matches_jax(mesh_name, n, np_dt, t_dt, tol):
 
 @pytest.mark.parametrize("rows", SIZES)
 def test_padded_table_gather_equals_plain_reduce(rows):
-    """The padded table the CUDA kernel reads gives the sums of the plain
-    version: out[n] = Σ_l src[idx[n, l]] over non-sentinel slots."""
+    """The padded table (the JAX kernel's layout) gives the sums of the
+    plain version: out[n] = Σ_l src[idx[n, l]] over non-sentinel slots."""
     rng = np.random.default_rng(rows)
     row_of_slot = rng.integers(0, rows, size=3 * rows + 2)
     perm = np.argsort(row_of_slot, kind="stable")
