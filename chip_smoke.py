@@ -81,9 +81,25 @@ Phases, one JSON line each:
    (one batched B1 and one batched B2 launch) and ``solve_batch`` over 8
    Gaussian right-hand sides, each instance against its single solve; the
    batched B1/B2 timed against their plain versions and 8 single launches;
-15. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+15. matfree — at n = 64 on the main path's plan: ``PoissonProblem.solve(
+   backend="matfree")`` for the stores ``context``, ``coords`` and
+   ``local`` against the ``ell`` solve (u 1e-8, iterations ±1, B2 once per
+   apply and B1 for ``local`` by the wrappers and a profiler trace of 30
+   CG iterations; the apply's gather, action and scatter timed apart, its
+   peak memory and the operator's state beside the CSR values); ∂/∂ρ of
+   Σu² through ``matfree_solve`` against ``sparse_solve`` (1e-6
+   relative); a family of 8 fields (one batched B1 launch for its
+   element matrices, ``matvec`` and ``diagonal`` one batched B2 launch
+   each, equal to 8 single applies; ``matfree_solve_batched`` against 8
+   single solves); 20 Crank–Nicolson steps on matrix-free operators
+   against the ``csr`` rollout at the default tolerance (1e-6) and the
+   ``ell`` and ``csr`` rollouts at CG tolerance 1e-12 (1e-8, iterations
+   ±1 against ``csr``'s); Allen–Cahn with ``NewtonKrylovIntegrator`` on
+   ``unit_square_tri(512)`` (‖G(u)‖ < 1e-8) and at n = 8 against the JAX
+   package's numbers;
+16. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-16. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+17. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -104,8 +120,11 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``assembly_cost`` (the wall time of a warm n = 64 assembly) and
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
-``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``,
-``quickstart`` and ``kernels_offsets64`` alone.
+``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
+``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
+so: how often a profiler trace misses a B1/B2 launch that the wrappers
+counted, on the matrix-free gate's window, by how the trace is opened
+(after other phases: ``--only mixed_bc,elasticity,batched,trace_drops``).
 ``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (a checkout of
 another commit) instead.  Such a partial run ends with a ``partial_run``
 line, never with the full run's ``{"ok": true, ...}``.
@@ -802,7 +821,8 @@ def _device_time(prof) -> tuple[float, list]:
     rows = []
     for ev in prof.key_averages():
         # annotation ranges (tg.*) also appear on the device timeline: not kernels
-        if ev.device_type != DeviceType.CUDA or ev.key.startswith("tg."):
+        if (ev.device_type != DeviceType.CUDA or ev.key.startswith("tg.")
+                or "spin_kernel" in ev.key):  # _open_trace's pad
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -855,15 +875,16 @@ def phase_profile(prob):
 THETA_DT, THETA_STEPS = 1e-3, 20
 
 
-def _heat_rollout(prob, backend):
+def _heat_rollout(prob, backend, spec=None):
     """The Crank–Nicolson integrator of the heat equation on ``prob``'s
-    assembler and condenser, and u0 = sin(πx)sin(πy)sin(πz) on the free
-    DoFs."""
+    assembler and condenser (solver ``spec``, CG at 1e-10 by default), and
+    u0 = sin(πx)sin(πy)sin(πz) on the free DoFs."""
     from repro_torch.core import weakform as wf
     from repro_torch.transient import CRANK_NICOLSON, ThetaIntegrator
 
     integ = ThetaIntegrator.from_form(prob.asm, wf.diffusion(1.0), THETA_DT,
-                                      theta=CRANK_NICOLSON, bc=prob.bc, backend=backend)
+                                      theta=CRANK_NICOLSON, bc=prob.bc, backend=backend,
+                                      spec=spec)
     pts = torch.as_tensor(prob.space.dof_points, dtype=torch.float64, device="cuda")
     return integ, torch.sin(math.pi * pts).prod(dim=1) * prob.bc.free_mask
 
@@ -1656,12 +1677,30 @@ def _solve_u_eq_x(prob):
     return res, err
 
 
+OPEN_TRACE_PAD = 256
+
+
 def _open_trace() -> None:
-    """Open a counted torch.profiler trace with a throwaway kernel and a
-    sync: a trace whose first launch is the one to count can miss it (the
-    batched assembly's B1 went unrecorded once on an H100)."""
-    torch.zeros(1, device="cuda").add_(1)
+    """Open a counted torch.profiler trace with OPEN_TRACE_PAD throwaway
+    ``spin_kernel`` launches and a sync.  On an H100 a trace loses the
+    device records of its first few kernels, however long it waits before
+    them: 5 in most traces after the mixed-BC, elasticity and batched
+    phases, up to 59, none or 2 in a fresh process (``--only
+    trace_drops``).  The pad's kernels take that loss, so that the
+    launches to count are not among the first."""
+    for _ in range(OPEN_TRACE_PAD):
+        torch.cuda._sleep(1)
     torch.cuda.synchronize()
+
+
+def _lost_records(prof) -> list:
+    """Host launch calls of a trace that have no device kernel record
+    (paired by CUPTI correlation id): their start, in µs from the trace's
+    start."""
+    kernels_seen = {e.id for e in prof.events() if e.device_type == DeviceType.CUDA}
+    return sorted(e.time_range.start for e in prof.events()
+                  if e.device_type == DeviceType.CPU and e.id not in kernels_seen
+                  and re.match(r"cu(da)?LaunchKernel", e.name))
 
 
 def _kernel_calls(prof) -> dict:
@@ -1979,6 +2018,405 @@ def phase_batched(prob, bw, fp64):
     return out
 
 
+# The JAX package's numbers for NewtonKrylovIntegrator on unit_square_tri(8):
+# Allen–Cahn r(u) = −u(u²−1), κ = 1e-2, dt = 1e-3, 4 Newton iterations, CG at
+# tol = atol = 1e-12, u0 = sin(πx)sin(πy) on the free DoFs (the set-up of
+# tests/test_transient.py), measured on the CPU: per step max u, ‖u‖₂ and the
+# Krylov iterations of the step's Newton updates.
+JAX_ALLEN_CAHN = {
+    "max_u": [0.9999790773207442, 0.9999547718354254, 0.9999271731771893,
+              0.9998963689778884, 0.999862444911567],
+    "norm": [4.000689345237632, 4.0013867484930605, 4.002092029231528, 4.002805011235624,
+             4.003525522491766],
+    "iters": [21] * 5,
+}
+ALLEN_CAHN_N, ALLEN_CAHN_STEPS = 512, 5
+MATFREE_STORES = ("context", "coords", "local")
+PROFILED_ITERS = 30
+
+
+def _allen_cahn(n):
+    """The Newton–Krylov Allen–Cahn integrator on unit_square_tri(n) and
+    its initial state."""
+    from repro_torch.core import SolverSpec, unit_square_tri, weakform as wf
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.transient import NewtonKrylovIntegrator
+
+    prob = PoissonProblem(unit_square_tri(n), device="cuda")
+    asm = prob.asm
+    nk = NewtonKrylovIntegrator(
+        asm, asm.assemble(wf.mass(1.0)), asm.assemble(wf.diffusion(1.0)), dt=1e-3,
+        reaction=lambda u: -u * (u ** 2 - 1.0), diffusion_scale=1e-2, bc=prob.bc,
+        newton_iters=4, spec=SolverSpec(method="cg", tol=1e-12, atol=1e-12))
+    pts = torch.as_tensor(prob.space.dof_points, dtype=torch.float64, device="cuda")
+    return nk, torch.sin(math.pi * pts[:, 0]) * torch.sin(math.pi * pts[:, 1]) * prob.bc.free_mask
+
+
+def _matfree_window(plan, bc, load, store):
+    """A matrix-free solve's device work over a window that a trace reads
+    in seconds: the operator's build (B1 for ``store="local"``), the
+    Jacobi diagonal (B2), CG's first residual and PROFILED_ITERS
+    iterations (B2 in each apply)."""
+    from repro_torch.core import cg, jacobi_preconditioner, matfree_operator, weakform as wf
+
+    op = matfree_operator(plan, wf.diffusion(None), store=store).condensed(bc)
+    return cg(op, load, m=jacobi_preconditioner(op), maxiter=PROFILED_ITERS)
+
+
+def phase_matfree(prob):
+    """Matrix-free operators (A9) and the time stepping on them (A12) at
+    n = 64, on the main path's plan and condenser: ``PoissonProblem.solve(
+    backend="matfree")`` for each store against the ``ell`` solve (B2 once
+    per apply, B1 for ``store="local"``, by the wrappers' counts over the
+    solve and a profiler trace of the build and 30 iterations, the same
+    window for every store; the apply's gather,
+    action and scatter timed apart); ∂/∂ρ of Σu² through ``matfree_solve``
+    against ``sparse_solve``; a family of 8 fields on the ``local`` store
+    (one batched B1 launch; ``matvec`` and ``diagonal`` one batched B2
+    launch each; ``matfree_solve_batched`` against 8 single solves); 20
+    Crank–Nicolson steps on matrix-free operators, timed at the default
+    tolerance and held against the ``csr`` rollout there (1e-6), then
+    against the ``ell`` and ``csr`` rollouts at a tolerance that resolves
+    1e-8 (iterations against ``csr``'s: both start each solve from zero,
+    ``ell`` from uⁿ); and
+    Allen–Cahn with ``NewtonKrylovIntegrator`` on unit_square_tri(512)
+    (263,169 DoFs) and, against the JAX package's numbers, at n = 8."""
+    from torch.autograd.function import BackwardCFunction
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import (SolverSpec, assemble, assemble_rhs, matfree_family,
+                                  matfree_operator, matfree_solve, matfree_solve_batched,
+                                  sparse_solve, weakform as wf)
+    from repro_torch.core.assembly import reduce_vector
+
+    if prob is None:
+        from repro_torch.core import unit_cube_tet
+        from repro_torch.fem import PoissonProblem
+
+        prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    plan, bc, n = prob.plan, prob.bc, prob.space.num_dofs
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ref = prob.solve(f=1.0)
+    gates, walls = [], {}  # gates are read after the phase's line is out
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    t_section = time.perf_counter()
+
+    def section(name):
+        nonlocal t_section
+        now = time.perf_counter()
+        walls[name] = now - t_section
+        t_section = now
+
+    # the path: the first solve of each store, counted from 0 around the three
+    kernels.reset_launches()
+    firsts = {}
+    for store in MATFREE_STORES:
+        before = dict(kernels.LAUNCHES)
+        res, first_s = timed(lambda: prob.solve(f=1.0, backend="matfree", store=store))
+        firsts[store] = (res, first_s, {k: v - before[k] for k, v in kernels.LAUNCHES.items()})
+    launches = dict(kernels.LAUNCHES)
+
+    csr_vals_bytes = 8 * plan.nnz
+    csr_bytes = csr_vals_bytes + 8 * plan.nnz + 8 * (n + 1)
+    load = bc.project_residual(assemble_rhs(plan, wf.source(1.0)))
+    stores = {}
+    for store in MATFREE_STORES:
+        res, first_s, counts = firsts[store]
+        _, warm_s = timed(lambda: prob.solve(f=1.0, backend="matfree", store=store))
+
+        kernels.reset_launches()
+        with profile(activities=acts) as prof:
+            _open_trace()
+            _, prof_s = timed(lambda: _matfree_window(plan, bc, load, store))
+        traced_launches = dict(kernels.LAUNCHES)
+        busy_ms, top = _device_time(prof)
+        calls = _kernel_calls(prof)
+        op_full = matfree_operator(plan, wf.diffusion(None), store=store)
+        op = op_full.condensed(bc)
+        x = ref.u.clone()
+        xe = x[plan.cell_dofs]
+        y_local = op._local_apply(xe, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        op.matvec(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        applies = res.iters + 2  # CG's first residual, one per iteration, the final residual
+        row = {"iters": res.iters, "ell_iters": ref.iters, "residual": res.residual,
+               "converged": res.converged, "max_u": float(res.u.max()),
+               "max_abs_diff_vs_ell": float((res.u - ref.u).abs().max()),
+               "first_s": first_s, "warm_s": warm_s,
+               "profiled": {"window": f"build + diagonal + {PROFILED_ITERS} CG iterations",
+                            "wall_ms": 1e3 * prof_s, "device_busy_ms": busy_ms,
+                            "device_busy_share": busy_ms / (1e3 * prof_s), "top_kernels": top,
+                            "kernel_calls": calls, "wrapper_launches": traced_launches,
+                            "lost_records": len(_lost_records(prof))},
+               "applies": applies, "launches": counts,
+               "apply_ms": time_ms(lambda: op.matvec(x)),
+               "gather_ms": time_ms(lambda: x[plan.cell_dofs]),
+               "action_ms": time_ms(lambda: op._local_apply(xe, False)),
+               "scatter_ms": time_ms(lambda: reduce_vector(y_local, plan)),
+               "apply_peak_bytes": peak, "state_bytes": op_full.state_bytes(),
+               "csr_vals_bytes": csr_vals_bytes, "csr_bytes": csr_bytes}
+        stores[store] = row
+        section(store)
+        b1 = 1 if store == "local" else 0
+        gate(res.converged, f"matfree {store}: not converged")
+        gate(abs(res.iters - ref.iters) <= 1 and abs(res.iters - 147) <= 1,
+             f"matfree {store}: {res.iters} iterations against ell's {ref.iters}")
+        gate(row["max_abs_diff_vs_ell"] <= 1e-8, f"matfree {store}: u differs from ell {row}")
+        gate(0.0555 <= row["max_u"] <= 0.0565, f"matfree {store}: max u {row['max_u']}")
+        # B2 once per apply, besides the load's Reduce and the Jacobi diagonal
+        # (a solve; a window: the diagonal and CG's first residual)
+        lost = f"; the trace lost {row['profiled']['lost_records']} kernel records"
+        for label, got, want in (("wrappers", counts, applies + 2),
+                                 ("profiler", calls, PROFILED_ITERS + 2)):
+            gate(got["seg_reduce"] == want,
+                 f"matfree {store}: B2 launched {got['seg_reduce']} times, not {want} "
+                 f"({label}{lost})")
+            gate(got["local_stiffness_p1"] == b1,
+                 f"matfree {store}: B1 launched {got['local_stiffness_p1']} times ({label}{lost})")
+        gate(counts["spmv_ell"] == 0 and counts["galerkin_residual_ell"] == 0,
+             f"matfree {store}: launched B3/B4 {counts}")
+
+    # the gradient through matfree_solve against sparse_solve's
+    spec12 = SolverSpec(method="cg", tol=1e-12, atol=1e-12)
+    x_mid = plan.coords[:, :, 0].mean(dim=1)
+
+    def grad_of(solve):
+        rho = (1.0 + x_mid).requires_grad_(True)
+        u, info = solve(rho)
+        return torch.autograd.grad((u ** 2).sum(), rho)[0], info
+
+    kernels.reset_launches()
+    (g_mf, i_mf), grad_mf_s = timed(lambda: grad_of(lambda r: matfree_solve(
+        matfree_operator(plan, wf.diffusion(r)).condensed(bc), load, spec12, return_info=True)))
+    grad_launches = dict(kernels.LAUNCHES)
+    (g_sp, i_sp), grad_sp_s = timed(lambda: grad_of(lambda r: sparse_solve(
+        bc.apply_matrix_only(assemble(plan, wf.diffusion(r))), load, spec12, return_info=True)))
+    grad_rel = float((g_mf - g_sp).abs().max() / g_sp.abs().max())
+    grad = {"rel_diff_vs_sparse_solve": grad_rel, "iters": i_mf.iters,
+            "sparse_iters": i_sp.iters, "wall_s": grad_mf_s, "sparse_wall_s": grad_sp_s,
+            "launches": grad_launches}
+    gate(grad_rel <= 1e-6, f"matfree gradient against sparse_solve's: {grad_rel}")
+    # the apply that the backward differentiates scatters through B2's
+    # autograd Function (taken where the source requires grad); the walk
+    # stops at a custom Function's node, whose inputs torch does not expose
+    op_g = matfree_operator(plan, wf.diffusion((1.0 + x_mid).requires_grad_(True)))
+    nodes, todo = set(), [op_g.condensed(bc).matvec(load).grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and type(fn).__name__ not in nodes:
+            nodes.add(type(fn).__name__)
+            if not isinstance(fn, BackwardCFunction):
+                todo.extend(f for f, _ in fn.next_functions)
+    grad["apply_graph_has_seg_reduce_function"] = "_SegReduceBackward" in nodes
+    gate(grad["apply_graph_has_seg_reduce_function"],
+         f"matfree gradient: the apply's graph has no B2 Function: {sorted(nodes)}")
+
+    section("gradient")
+
+    # a family of 8 fields on the shared plan, its element matrices formed
+    # by one batched B1 launch (store="local")
+    rho_b = torch.stack([1.0 + 0.5 * b * x_mid for b in range(BATCH)])
+    kernels.reset_launches()
+    fam = matfree_family(plan, wf.diffusion(rho_b[0]), leaves_batch=(rho_b, None),
+                         store="local").condensed(bc)
+    fam_launches = {"build_b1": kernels.LAUNCHES["local_stiffness_p1"]}
+    gate(fam_launches["build_b1"] == 1, f"family: B1 launched {fam_launches['build_b1']} times")
+    xb = torch.as_tensor(np.random.default_rng(3).normal(size=(BATCH, n)), device="cuda")
+    for name, fn in (("matvec", lambda: fam.matvec(xb)), ("diagonal", fam.diagonal)):
+        kernels.reset_launches()
+        out = fn()
+        fam_launches[name] = kernels.LAUNCHES["seg_reduce"]
+        single = torch.stack([fam[b].matvec(xb[b]) if name == "matvec" else fam[b].diagonal()
+                              for b in range(BATCH)])
+        err, scale = max_err(out, single)
+        gate(fam_launches[name] == 1, f"family {name}: B2 launched {fam_launches[name]} times")
+        gate(err <= 1e-12 * scale, f"family {name}: {err} against 8 single applies")
+        fam_launches[f"{name}_max_abs_err"] = err
+    with profile(activities=acts) as prof:
+        _open_trace()
+        fam.matvec(xb)
+        fam.diagonal()
+        torch.cuda.synchronize()
+    fam_calls, fam_lost = _kernel_calls(prof), len(_lost_records(prof))
+    gate(fam_calls["seg_reduce"] == 2, f"family: the profiler saw {fam_calls}")
+    section("family_applies")
+    (xs, info_b), fam_solve_s = timed(lambda: matfree_solve_batched(fam, load, return_info=True))
+    fam_rows = []
+    for b in range(BATCH):
+        x1, i1 = matfree_solve(fam[b], load, return_info=True)
+        fam_rows.append({"b": b, "iters": int(info_b.iters[b]), "single_iters": i1.iters,
+                         "rel_diff": float((xs[b] - x1).abs().max() / x1.abs().max())})
+    for row in fam_rows:
+        gate(row["rel_diff"] <= 1e-10 and row["iters"] == row["single_iters"],
+             f"matfree_solve_batched: instance against its single solve {row}")
+    family = {"B": BATCH, "store": "local", "launches": fam_launches,
+              "profiled_kernel_calls": fam_calls, "profiled_lost_records": fam_lost,
+              "matvec_ms": time_ms(lambda: fam.matvec(xb)),
+              "single_x_B_matvec_ms": time_ms(lambda: [fam[b].matvec(xb[b])
+                                                       for b in range(BATCH)]),
+              "solve_batched_s": fam_solve_s, "rows": fam_rows}
+    section("family")
+
+    # Crank–Nicolson on matrix-free operators: the rollout at the default
+    # tolerance, timed and counted; then matfree, csr and ell at a tolerance
+    # that resolves 1e-8 (at tol = atol = 1e-10 each solve may stop ~1e-7
+    # apart in u: the absolute floor, over λ_min(M + θΔtK) ~ h³)
+    mf_integ, u0 = _heat_rollout(prob, "matfree")
+    kernels.reset_launches()
+    (traj, info), theta_s = timed(lambda: mf_integ.rollout(u0, THETA_STEPS, return_info=True))
+    theta_launches = dict(kernels.LAUNCHES)
+    section("theta_default")
+    iters = info.iters.tolist()
+    traj_csr, info_csr = _heat_rollout(prob, "csr")[0].rollout(u0, THETA_STEPS, return_info=True)
+    decay = math.exp(-3 * math.pi**2 * THETA_DT * THETA_STEPS)
+    tight = SolverSpec(method="cg", tol=1e-12, atol=1e-15)
+    runs = {be: _heat_rollout(prob, be, spec=tight)[0].rollout(u0, THETA_STEPS, return_info=True)
+            for be in ("matfree", "csr", "ell")}
+    (t_mf, i_mf), (t_csr, i_csr), (t_ell, i_ell) = runs.values()
+    theta = {"iters": iters, "wall_s": theta_s, "wall_ms_per_step": 1e3 * theta_s / THETA_STEPS,
+             "max_u_ratio": float(traj[-1].max() / u0.max()), "expected_ratio": decay,
+             "launches": theta_launches, "csr_iters": info_csr.iters.tolist(),
+             "max_rel_diff_vs_csr": float((traj - traj_csr).abs().max() / traj_csr.abs().max()),
+             "tight": {"tol": tight.tol, "atol": tight.atol, "iters": i_mf.iters.tolist(),
+                       "csr_iters": i_csr.iters.tolist(), "ell_iters": i_ell.iters.tolist(),
+                       "max_rel_diff_vs_csr": float((t_mf - t_csr).abs().max()
+                                                    / t_csr.abs().max()),
+                       "max_rel_diff_vs_ell": float((t_mf - t_ell).abs().max()
+                                                    / t_ell.abs().max())}}
+    gate(bool(info.converged.all()) and all(bool(i.converged.all()) for _, i in runs.values()),
+         "matfree θ rollout did not converge")
+    gate(abs(theta["max_u_ratio"] / decay - 1) <= 0.01, f"matfree θ rollout: decay {theta}")
+    # the timed rollout against csr's at the same tolerance: both start each
+    # solve from zero; 1e-6 is 16 times the 6.3e-8 that the stopping rule
+    # left between them on an H100
+    gate(bool(info_csr.converged.all()) and theta["max_rel_diff_vs_csr"] <= 1e-6,
+         f"matfree θ rollout at the default tolerance against csr's: "
+         f"{theta['max_rel_diff_vs_csr']}")
+    # per step: the rhs apply, CG's first residual, one per iteration; the
+    # Jacobi diagonal once (cached on the condensed operator)
+    gate(theta_launches["seg_reduce"] == 2 * THETA_STEPS + sum(iters) + 1,
+         f"matfree θ rollout: B2 launched {theta_launches['seg_reduce']} times")
+    tt = theta["tight"]
+    gate(tt["max_rel_diff_vs_ell"] <= 1e-8 and tt["max_rel_diff_vs_csr"] <= 1e-8,
+         f"matfree θ rollout against ell / csr: {tt}")
+    # each matfree solve starts from zero, as csr's; ell's from uⁿ
+    gate(max(abs(a - b) for a, b in zip(tt["iters"], tt["csr_iters"])) <= 1,
+         f"matfree θ rollout: iterations {tt['iters']} against csr's {tt['csr_iters']}")
+    section("theta")
+
+    # Allen–Cahn with Newton–Krylov: the JAX package's numbers at n = 8, then n = 512
+    nk8, u08 = _allen_cahn(8)
+    traj8, info8 = nk8.rollout(u08, ALLEN_CAHN_STEPS, return_info=True)
+    small = {"max_u": traj8.max(dim=1).values.tolist(),
+             "norm": torch.linalg.vector_norm(traj8, dim=1).tolist(),
+             "iters": info8.iters.tolist()}
+    for key in ("max_u", "norm"):
+        dev = max(abs(a - b) for a, b in zip(small[key], JAX_ALLEN_CAHN[key]))
+        small[f"{key}_max_abs_diff_vs_jax"] = dev
+        gate(dev <= 1e-10, f"Allen–Cahn n=8: {key} {small[key]} against {JAX_ALLEN_CAHN[key]}")
+    gate(max(abs(a - b) for a, b in zip(small["iters"], JAX_ALLEN_CAHN["iters"])) <= 1,
+         f"Allen–Cahn n=8: iterations {small['iters']}")
+    (nk, u0), ac_setup_s = timed(lambda: _allen_cahn(ALLEN_CAHN_N))
+    kernels.reset_launches()
+    (traj, info), ac_s = timed(lambda: nk.rollout(u0, ALLEN_CAHN_STEPS, return_info=True))
+    ac_launches = dict(kernels.LAUNCHES)
+    g_norm = float(torch.linalg.vector_norm(nk.residual(traj[-2], traj[-1])))
+    allen_cahn = {"n": ALLEN_CAHN_N, "dofs": int(u0.shape[0]), "setup_s": ac_setup_s,
+                  "wall_s": ac_s, "wall_ms_per_step": 1e3 * ac_s / ALLEN_CAHN_STEPS,
+                  "iters": info.iters.tolist(), "last_residual_norm": g_norm,
+                  "max_u": float(traj[-1].max()), "launches": ac_launches, "jax_n8": small}
+    gate(bool(torch.isfinite(traj).all()) and bool(info.converged.all()),
+         "Allen–Cahn n=512: not finite or not converged")
+    gate(g_norm < 1e-8, f"Allen–Cahn n=512: ‖G(u)‖ = {g_norm}")
+
+    section("allen_cahn")
+    for name in ("local_stiffness_p1", "seg_reduce"):
+        gate(launches[name] > 0, f"matfree path: kernel {name} never launched")
+    out = {"phase": "matfree", "n": MAIN_N, "dofs": n, "elements": plan.num_cells,
+           "launches": launches, "stores": stores, "gradient": grad, "family": family,
+           "theta": theta, "allen_cahn": allen_cahn, "section_walls_s": walls,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
+TRACE_OPENINGS = ("none", "one_kernel", "sleep", "pad")
+TRACE_REPEATS = {"local": 8, "context": 3, "coords": 2}
+
+
+def phase_trace_drops():
+    """How often a torch.profiler trace misses a launch of B1 or B2 that
+    the wrappers counted, and which records it loses: the matrix-free
+    gate's window (``_matfree_window`` at n = 64) traced again and again
+    on each store, the trace opened four ways in turn: straight away
+    (``none``); after one throwaway kernel and a sync (``one_kernel``, the
+    opening through PR 19); after two of them, each followed by a 50 ms
+    pause (``sleep``); and after ``_open_trace`` (``pad``, the gates').
+    Per trace: the wrappers' and the profiler's B1/B2 counts, and the host
+    launch calls without a device record, before the window (in the
+    opening) and in it.  Reports; holds nothing.  Run it after other
+    phases (``--only mixed_bc,elasticity,batched,trace_drops``): a fresh
+    process loses fewer records."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import kernels
+    from repro_torch.core import assemble_rhs, unit_cube_tet, weakform as wf
+    from repro_torch.fem import PoissonProblem
+
+    prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    plan, bc = prob.plan, prob.bc
+    load = bc.project_residual(assemble_rhs(plan, wf.source(1.0)))
+    for store in TRACE_REPEATS:
+        _matfree_window(plan, bc, load, store)  # every kernel loaded before the first trace
+    torch.cuda.synchronize()
+    summary, misses = {}, []
+    for store, repeats in TRACE_REPEATS.items():
+        for _ in range(repeats):
+            for opening in TRACE_OPENINGS:
+                kernels.reset_launches()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range({"one_kernel": 1, "sleep": 2}.get(opening, 0)):
+                        torch.zeros(1, device="cuda").add_(1)
+                        torch.cuda.synchronize()
+                        time.sleep(0.05 if opening == "sleep" else 0.0)
+                    if opening == "pad":
+                        _open_trace()
+                    with record_function("window"):
+                        _matfree_window(plan, bc, load, store)
+                    torch.cuda.synchronize()
+                calls = _kernel_calls(prof)
+                missed = {k: kernels.LAUNCHES[k] - calls[k]
+                          for k in ("local_stiffness_p1", "seg_reduce")}
+                start = next(e.time_range.start for e in prof.events()
+                             if e.device_type == DeviceType.CPU and e.name == "window")
+                lost = _lost_records(prof)
+                cell = summary.setdefault(f"{store}/{opening}", {
+                    "traces": 0, "with_a_miss": 0, "missed_b1": 0, "missed_b2": 0,
+                    "lost_before_window": [], "lost_in_window": []})
+                cell["traces"] += 1
+                cell["with_a_miss"] += any(missed.values())
+                cell["missed_b1"] += missed["local_stiffness_p1"]
+                cell["missed_b2"] += missed["seg_reduce"]
+                cell["lost_before_window"].append(sum(t < start for t in lost))
+                cell["lost_in_window"].append(sum(t >= start for t in lost))
+                if any(missed.values()):
+                    misses.append({"store": store, "opening": opening, "missed": missed,
+                                   "lost_us_from_window": [t - start for t in lost][:12]})
+    emit({"phase": "trace_drops", "n": MAIN_N, "window": f"build + diagonal + "
+          f"{PROFILED_ITERS} CG iterations", "open_trace_pad": OPEN_TRACE_PAD,
+          "summary": summary, "misses": misses[:8]})
+
+
 def phase_quickstart():
     """examples/quickstart_torch.py in a subprocess on the card, against the
     numbers of examples/quickstart.py (the JAX package, on the CPU)."""
@@ -2030,8 +2468,8 @@ def device_line() -> tuple[str, str]:
 
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
-               "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched", "quickstart",
-               "kernels_offsets64")
+               "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
+               "matfree", "trace_drops", "quickstart", "kernels_offsets64")
 
 
 def main(argv=None) -> int:
@@ -2085,6 +2523,7 @@ def main(argv=None) -> int:
     mixed = phase_mixed_bc()
     elasticity = phase_elasticity(bw, fp64)
     batched = phase_batched(prob, bw, fp64)
+    matfree = phase_matfree(prob)
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -2096,7 +2535,7 @@ def main(argv=None) -> int:
     launches = {kname: counts[kname] for kname, (_, counts) in paths.items()}
     # and on this slice's paths, each counted from 0 around its own run
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
-             "batched": batched["coeff_batch"]["launches"]}
+             "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -2137,6 +2576,8 @@ def run_only(only) -> int:
               "mixed_bc": phase_mixed_bc,
               "elasticity": lambda: phase_elasticity(*card_peaks(name)),
               "batched": lambda: phase_batched(None, *card_peaks(name)),
+              "matfree": lambda: phase_matfree(None),
+              "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}
     for phase in ONLY_PHASES:

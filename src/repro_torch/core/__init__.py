@@ -1,5 +1,6 @@
 """TensorGalerkin core on PyTorch: Batch-Map + Sparse-Reduce Galerkin
-assembly, sparse containers, Dirichlet condensation and Krylov solvers.
+assembly, sparse containers, matrix-free operators, Dirichlet condensation
+and Krylov solvers.
 
 Everything is float64 (the paper solves to a 1e-10 residual) and runs on
 the CUDA device unless the caller passes ``device="cpu"``.
@@ -42,6 +43,13 @@ from .mesh import (  # noqa: F401
     unit_cube_tet,
     unit_square_tri,
 )
+from .operator import (  # noqa: F401
+    LinearOperator,
+    MatFreeFamily,
+    MatFreeOperator,
+    matfree_family,
+    matfree_operator,
+)
 from .solvers import (  # noqa: F401
     SolveInfo,
     SolverSpec,
@@ -49,6 +57,8 @@ from .solvers import (  # noqa: F401
     cg,
     jacobi_preconditioner,
     make_preconditioner,
+    matfree_solve,
+    matfree_solve_batched,
     register_preconditioner,
     resolve_solver_spec,
     sparse_solve,

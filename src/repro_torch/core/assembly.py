@@ -200,6 +200,9 @@ class AssemblyPlan:
         self.geo_grad = dev(geo.tabulate_grad(pts))
         scalar = space.cell_dofs[:, :: space.value_size] // space.value_size
         self.scalar_cell_dofs = dev(scalar, torch.int64)
+        # the local→global dof map (E, k) of the matrix-free gather
+        self.cell_dofs = (self.scalar_cell_dofs if space.value_size == 1
+                          else dev(space.cell_dofs, torch.int64))
         self.coords = dev(mesh.points[mesh.cells])
         self.mat_routing = build_matrix_routing(space.cell_dofs, None, space.num_dofs)
         self.vec_routing = build_vector_routing(space.cell_dofs, space.num_dofs)
@@ -302,13 +305,15 @@ def _p1_element_rho(plan: AssemblyPlan, coords, volume):
     return (rho_e * scale).to(coords.dtype).contiguous()
 
 
-def _volume_map(plan: AssemblyPlan, coords, volume):
+def _volume_map(plan: AssemblyPlan, coords, volume, ctx: forms.FormContext | None = None):
     """The fused volume Map: every volume term against one shared context,
-    local matrices/vectors summed term-wise (B1 for P1 diffusion)."""
-    rho_e = _p1_element_rho(plan, coords, volume)
+    local matrices/vectors summed term-wise (B1 for P1 diffusion).  With
+    ``coords=None`` the terms map on the given Stage-I ``ctx`` (einsum)."""
+    rho_e = None if coords is None else _p1_element_rho(plan, coords, volume)
     if rho_e is not None:
         return local_stiffness_p1(coords.contiguous(), rho_e)
-    ctx = plan.context(coords)
+    if ctx is None:
+        ctx = plan.context(coords)
     local_sum = None
     for kind, coeffs, scale in volume:
         local = weakform.KERNELS[kind].fn(ctx, plan.value_size, *coeffs) * scale
@@ -444,26 +449,31 @@ def _lower_batched(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
     return spec, merged, coords, coords_batch is not None, batched, sizes.pop()
 
 
-def _batched_vals(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
-    spec, leaves, coords, coords_batched, batched, n_inst = _lower_batched(
-        plan, form, arity, coords_batch, leaves_batch)
-    is_mat = arity == weakform.MATRIX
-    t0 = time.perf_counter() if telemetry.is_enabled() else None
+def _batched_map(plan: AssemblyPlan, spec, leaves, coords, coords_batched, batched,
+                 n_inst) -> torch.Tensor:
+    """The Map of B instances, ``(B, E, ...)``: for P1 diffusion on shared
+    coordinates one batched B1 launch over ``ρ (B, E)``, otherwise the
+    volume Map instance by instance."""
 
     def instance(b):
         c = coords[b] if coords_batched else coords
         lv = tuple(v[b] if is_b else v for v, is_b in zip(leaves, batched))
         return c, [(k, cf, sc) for k, _, cf, sc in _terms(spec, lv)]
 
+    if not coords_batched:
+        rhos = [_p1_element_rho(plan, *instance(b)) for b in range(n_inst)]
+        if n_inst and rhos[0] is not None:
+            return local_stiffness_p1(coords.contiguous(), torch.stack(rhos))
+    return torch.stack([_volume_map(plan, *instance(b)) for b in range(n_inst)])
+
+
+def _batched_vals(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
+    spec, leaves, coords, coords_batched, batched, n_inst = _lower_batched(
+        plan, form, arity, coords_batch, leaves_batch)
+    is_mat = arity == weakform.MATRIX
+    t0 = time.perf_counter() if telemetry.is_enabled() else None
     with annotate("tg.map"):
-        local = None
-        if not coords_batched:
-            # P1 diffusion on shared coordinates: one batched B1 launch
-            rhos = [_p1_element_rho(plan, *instance(b)) for b in range(n_inst)]
-            if n_inst and rhos[0] is not None:
-                local = local_stiffness_p1(coords.contiguous(), torch.stack(rhos))
-        if local is None:
-            local = torch.stack([_volume_map(plan, *instance(b)) for b in range(n_inst)])
+        local = _batched_map(plan, spec, leaves, coords, coords_batched, batched, n_inst)
     with annotate("tg.reduce"):
         out = seg_reduce(local, plan.mat_reduce if is_mat else plan.vec_reduce, batch=True)
     if t0 is not None:

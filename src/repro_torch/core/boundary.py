@@ -16,6 +16,8 @@ The torch port of ``repro.core.boundary``:
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
@@ -26,6 +28,9 @@ from .mesh import FunctionSpace
 from .routing import build_matrix_routing, build_vector_routing
 from .sparse import CSR
 from ..kernels.seg_reduce import ReduceTable, seg_reduce
+
+if TYPE_CHECKING:
+    from .operator import LinearOperator
 
 __all__ = ["DirichletCondenser", "FacetAssembler"]
 
@@ -81,10 +86,10 @@ class DirichletCondenser:
             return torch.where(self._is_bc_dev, values, u_d)
         raise ValueError(f"un-interpretable Dirichlet value shape {tuple(values.shape)}")
 
-    def lift(self, k: CSR, f: torch.Tensor, values=0.0) -> torch.Tensor:
+    def lift(self, k: CSR | LinearOperator, f: torch.Tensor, values=0.0) -> torch.Tensor:
         """RHS-only condensation: ``F ← F − K u_D`` on free rows, ``F[bc] = g``.
-        ``k`` must be the *uncondensed* matrix (the lift needs the
-        constrained columns)."""
+        ``k`` must be the *uncondensed* operator, assembled or matrix-free
+        (the lift needs the constrained columns: one ``k.matvec``)."""
         u_d = self.boundary_field(values, dtype=f.dtype)
         f_lift = (f - k.matvec(u_d)) * self.free_mask.to(f.dtype)
         bc = self._bc_dofs_dev

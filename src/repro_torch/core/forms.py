@@ -10,6 +10,7 @@ differentiable.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -24,6 +25,7 @@ __all__ = [
     "elasticity",
     "load",
     "vector_load",
+    "nonlinear_reaction",
 ]
 
 
@@ -174,3 +176,11 @@ def vector_load(ctx: FormContext, f, d: int) -> torch.Tensor:
     f_q = eval_coefficient(f, ctx, vector_size=d)      # (E, Q, d)
     e, nv = ctx.wdet.shape[0], ctx.phi.shape[1]
     return torch.einsum("eq,eqi,qa->eai", ctx.wdet, f_q, ctx.phi).reshape(e, nv * d)
+
+
+def nonlinear_reaction(ctx: FormContext, u_nodal, fn: Callable) -> torch.Tensor:
+    """Semi-linear load ∫ fn(u) φ_a (the Allen–Cahn reaction): ``u_nodal``
+    is the current coefficient vector, ``fn`` acts pointwise on its
+    quadrature values."""
+    u_q = eval_coefficient(u_nodal, ctx)
+    return torch.einsum("eq,eq,qa->ea", ctx.wdet, fn(u_q), ctx.phi)

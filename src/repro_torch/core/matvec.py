@@ -16,6 +16,9 @@ backend        apply path
                vals/cols tiles through a ``cp.async`` pipeline, on the plan
                the sparsity pattern caches; ``make_residual`` runs the fused
                streaming residual (``galerkin_residual_ell_stream``)
+``matfree``    element-local gather → per-element action → scatter-Reduce
+               (B2) with no global values
+               (:class:`repro_torch.core.operator.MatFreeOperator`)
 =============  =============================================================
 
 Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp,
@@ -24,8 +27,8 @@ Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp,
 ``ell_pallas`` both run the broadcast-plan CUDA kernels and ``ell_stream``
 the streaming ones, on CUDA tensors, and their plain versions on CPU
 tensors, so the names of both registries select the same arithmetic.
-``matfree`` and ``matfree_sharded`` are registered but raise
-``NotImplementedError`` until the slices that port them.
+``matfree_sharded`` is registered but raises ``NotImplementedError``
+until the sharding slice (ROADMAP A16).
 
 ``make_matvec(op, backend)`` returns the apply closure;
 ``make_residual(op, backend)`` returns ``(u, f) ↦ K·u − f``.  Further
@@ -38,6 +41,7 @@ from typing import Callable
 
 from .. import telemetry
 from ..kernels.ops import ell_matvec, ell_matvec_stream, ell_residual, ell_residual_stream
+from .operator import LinearOperator
 from .sparse import CSR, csr_to_ell
 
 __all__ = [
@@ -52,8 +56,20 @@ __all__ = [
 def _require_csr(op, backend: str) -> CSR:
     if not isinstance(op, CSR):
         raise TypeError(
-            f"backend {backend!r} needs an assembled CSR operator, got {type(op).__name__}"
+            f"backend {backend!r} needs an assembled CSR operator, got {type(op).__name__} — "
+            "assemble first, or use backend='matfree'"
         )
+    return op
+
+
+def _require_matfree(op) -> LinearOperator:
+    if isinstance(op, CSR):
+        raise TypeError(
+            "backend 'matfree' needs a matrix-free operator: build one with "
+            "repro_torch.core.matfree_operator(plan, form) instead of assembling"
+        )
+    if not isinstance(op, LinearOperator):
+        raise TypeError(f"backend 'matfree' needs a LinearOperator, got {type(op).__name__}")
     return op
 
 
@@ -85,14 +101,20 @@ def _ell_stream_residual(op) -> Callable:
     return lambda u, f: ell_residual_stream(ell, u, f)
 
 
-def _later(backend: str, slice_name: str) -> Callable:
-    def factory(op):
-        raise NotImplementedError(
-            f"matvec backend {backend!r} is not ported yet: it comes with the "
-            f"{slice_name} slice of the torch port (ROADMAP queue A)"
-        )
+def _matfree_matvec(op) -> Callable:
+    return _require_matfree(op).matvec
 
-    return factory
+
+def _matfree_residual(op) -> Callable:
+    mv = _require_matfree(op).matvec
+    return lambda u, f: mv(u) - f
+
+
+def _matfree_sharded(op) -> Callable:
+    raise NotImplementedError(
+        "matvec backend 'matfree_sharded' is not ported yet: it comes with the "
+        "sharding slice of the torch port (ROADMAP queue A16)"
+    )
 
 
 # name -> (matvec factory, residual factory)
@@ -101,8 +123,8 @@ _BACKENDS: dict[str, tuple[Callable, Callable]] = {
     "ell": (_ell_matvec, _ell_residual),
     "ell_pallas": (_ell_matvec, _ell_residual),
     "ell_stream": (_ell_stream_matvec, _ell_stream_residual),
-    "matfree": (_later("matfree", "matrix-free operator"),) * 2,
-    "matfree_sharded": (_later("matfree_sharded", "sharding"),) * 2,
+    "matfree": (_matfree_matvec, _matfree_residual),
+    "matfree_sharded": (_matfree_sharded, _matfree_sharded),
 }
 
 # the built-in backend names (custom ones appear in matvec_backends())

@@ -1,7 +1,6 @@
 """Iterative sparse solvers + the differentiable solve (paper Eq. 11).
 
-The torch port of ``repro.core.solvers`` (assembled operators; the
-matrix-free solves come in a later slice):
+The torch port of ``repro.core.solvers``:
 
 * :func:`cg`, :func:`bicgstab` — preconditioned Krylov solvers with the
   update order and stopping rule of the JAX package, as Python loops.  The
@@ -18,6 +17,11 @@ matrix-free solves come in a later slice):
 * :func:`sparse_solve_batched` — :func:`sparse_solve` over a
   ``BatchedCSR`` family, one instance after another (each instance's
   iterations are its own, as in the reference's vmapped solve).
+* :func:`matfree_solve` — the same adjoint solve for a matrix-free
+  operator (CG + Jacobi by default): the backward pass solves ``Aᵀλ = ḡ``
+  and takes the operator's cotangents as the vjp of its apply,
+  ``∂/∂θ = −λᵀ (∂A/∂θ) x``; :func:`matfree_solve_batched` runs it over a
+  ``MatFreeFamily``, instance by instance.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ __all__ = [
     "jacobi_preconditioner",
     "sparse_solve",
     "sparse_solve_batched",
+    "matfree_solve",
+    "matfree_solve_batched",
     "SolveInfo",
 ]
 
@@ -116,8 +122,10 @@ def resolve_solver_spec(spec, legacy_pos=(), *, method=None, tol=None,
     return dataclasses.replace(base, **legacy)
 
 
-# the paper's BiCGSTAB + Jacobi for assembled systems
+# the paper's BiCGSTAB + Jacobi for assembled systems; CG + Jacobi for
+# matrix-free operators (the SPD Galerkin default)
 _SPARSE_DEFAULT = SolverSpec(method="bicgstab")
+_MATFREE_DEFAULT = SolverSpec(method="cg")
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +269,9 @@ def _method(name: str) -> Callable:
 # Differentiable sparse solve
 # ---------------------------------------------------------------------------
 
-def _solve_impl(a: CSR, b, spec: SolverSpec, transpose=False):
+def _solve_impl(a, b, spec: SolverSpec, transpose=False):
+    """The Krylov solve of ``a`` (anything with ``matvec``, ``rmatvec`` and
+    ``diagonal``), or of ``aᵀ``."""
     matvec = a.rmatvec if transpose else a.matvec
     m = make_preconditioner(a, spec.precond)
     return _method(spec.method)(matvec, b, tol=spec.tol, atol=spec.atol,
@@ -316,6 +326,30 @@ def _solve_one(a: CSR, b, spec: SolverSpec):
     return x, infos[0]
 
 
+def _solve_each(solve_one, family, b, spec: SolverSpec, where: str, backend: str,
+                return_info: bool):
+    """``solve_one(family[i], b_i, spec)`` for each instance in turn, each
+    with its own iteration count (the reference vmaps the same solve);
+    ``b`` is ``(B, n)`` or ``(n,)`` shared.  Returns ``(B, n)``, plus a
+    :class:`SolveInfo` of ``(B,)`` host tensors with ``return_info``."""
+    xs, infos = [], []
+    with span(where, method=spec.method, backend=backend):
+        for i in range(family.batch):
+            x, info = solve_one(family[i], b[i] if b.dim() == 2 else b, spec)
+            xs.append(x)
+            infos.append(info)
+    info = SolveInfo(torch.tensor([i.iters for i in infos]),
+                     torch.tensor([i.residual for i in infos], dtype=torch.float64),
+                     torch.tensor([i.converged for i in infos]))
+    x = torch.stack(xs) if xs else torch.zeros((0, family.shape[0]), dtype=b.dtype,
+                                               device=b.device)
+    if return_info:
+        events.record_solve(where, info, method=spec.method, backend=backend,
+                            precond=spec.precond_name)
+        return x, info
+    return x
+
+
 def sparse_solve_batched(a: BatchedCSR, b, spec: SolverSpec | None = None,
                          return_info=False):
     """``X_b = A_b⁻¹ b_b`` over a :class:`~repro_torch.core.sparse.BatchedCSR`
@@ -326,20 +360,89 @@ def sparse_solve_batched(a: BatchedCSR, b, spec: SolverSpec | None = None,
     ``return_info=True``).  Gradients flow to ``a.vals`` and ``b``."""
     spec = resolve_solver_spec(spec, default=_SPARSE_DEFAULT,
                                where="sparse_solve_batched")
-    xs, infos = [], []
-    with span("sparse_solve_batched", method=spec.method, backend="csr"):
-        for i in range(a.batch):
-            bi = b[i] if b.dim() == 2 else b
-            x, info = _solve_one(a[i], bi, spec)
-            xs.append(x)
-            infos.append(info)
-    info = SolveInfo(torch.tensor([i.iters for i in infos]),
-                     torch.tensor([i.residual for i in infos], dtype=torch.float64),
-                     torch.tensor([i.converged for i in infos]))
-    x = torch.stack(xs) if xs else torch.zeros((0, a.shape[0]), dtype=a.vals.dtype,
-                                               device=a.vals.device)
+    return _solve_each(_solve_one, a, b, spec, "sparse_solve_batched", "csr", return_info)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable matrix-free solve
+# ---------------------------------------------------------------------------
+
+class _MatFreeSolve(torch.autograd.Function):
+    """The Krylov solve on the operator's detached tensors; the backward
+    solves ``Aᵀλ = ḡ`` and pulls ``−λ`` back through one apply of an
+    operator rebuilt from fresh leaves (so ``b̄ = λ`` and ``θ̄ = vjp(θ ↦
+    A(θ)·x)(−λ)``)."""
+
+    @staticmethod
+    def forward(ctx, b, op, spec: SolverSpec, infos: list, *tensors):
+        op = op.with_traced([t.detach() for t in tensors])
+        x, info = _solve_impl(op, b.detach(), spec)
+        infos.append(info)
+        ctx.op, ctx.spec = op, spec
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        op, spec = ctx.op, ctx.spec
+        lam, adj_info = _solve_impl(op, g.contiguous(), spec, transpose=True)
+        events.record_solve("matfree_solve.adjoint", adj_info, method=spec.method,
+                            precond=spec.precond_name, phase="adjoint")
+        need = ctx.needs_input_grad[4:]
+        grads = [None] * len(need)
+        if any(need):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(n) for t, n in zip(op.traced(), need)]
+                y = op.with_traced(leaves).matvec(x)
+                got = iter(torch.autograd.grad(y, [t for t in leaves if t.requires_grad], -lam,
+                                               allow_unused=True))
+                grads = [next(got) if n else None for n in need]
+        return (lam, None, None, None, *grads)
+
+
+def _matfree_one(op, b, spec: SolverSpec):
+    if isinstance(op, CSR):
+        return _solve_one(op, b, spec)  # the assembled adjoint: sparse cotangent
+    tensors = op.traced()
+    if torch.is_grad_enabled() and (b.requires_grad or any(t.requires_grad for t in tensors)):
+        infos: list[SolveInfo] = []
+        x = _MatFreeSolve.apply(b, op, spec, infos, *tensors)
+        return x, infos[0]
+    return _solve_impl(op, b, spec)
+
+
+def matfree_solve(op, b, spec: SolverSpec | None = None, *legacy, method=None, tol=None,
+                  atol=None, maxiter=None, precond=None, return_info=False):
+    """``x = A⁻¹ b`` for a matrix-free operator (anything with ``matvec``,
+    ``rmatvec``, ``diagonal`` and ``traced``/``with_traced``),
+    differentiable with respect to the operator's tensors (coefficients,
+    scale factors, coordinates, context, element matrices) and ``b``.
+    The backward pass solves ``Aᵀλ = ḡ`` with the same Krylov method and
+    takes the operator's cotangents as one apply's vjp at ``−λ`` — no
+    assembled matrix.  A :class:`CSR` goes through :func:`sparse_solve`'s
+    adjoint.  Solver knobs come in as one :class:`SolverSpec` (default CG
+    + Jacobi); ``return_info=True`` also returns the :class:`SolveInfo`."""
+    spec = resolve_solver_spec(spec, legacy, method=method, tol=tol, atol=atol,
+                               maxiter=maxiter, precond=precond,
+                               default=_MATFREE_DEFAULT, where="matfree_solve")
+    with span("matfree_solve", method=spec.method, backend="matfree"):
+        x, info = _matfree_one(op, b, spec)
     if return_info:
-        events.record_solve("sparse_solve_batched", info, method=spec.method,
-                            backend="csr", precond=spec.precond_name)
+        events.record_solve("matfree_solve", info, method=spec.method,
+                            backend="matfree", precond=spec.precond_name)
         return x, info
     return x
+
+
+def matfree_solve_batched(family, b, spec: SolverSpec | None = None, return_info=False):
+    """``X_b = A_b⁻¹ b_b`` over a :class:`~repro_torch.core.MatFreeFamily`:
+    the differentiable :func:`matfree_solve` on each instance in turn, each
+    with its own iteration count (the reference vmaps the same solve).
+    ``b`` is ``(B, n)`` or ``(n,)`` shared; returns ``(B, n)`` (plus a
+    :class:`SolveInfo` of ``(B,)`` host tensors with ``return_info=True``).
+    Gradients flow to the family's batched leaves and ``b``."""
+    spec = resolve_solver_spec(spec, default=_MATFREE_DEFAULT,
+                               where="matfree_solve_batched")
+    return _solve_each(_matfree_one, family, b, spec, "matfree_solve_batched", "matfree",
+                       return_info)

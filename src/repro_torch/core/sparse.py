@@ -276,16 +276,19 @@ def csr_to_ell(csr: CSR) -> ELL:
 
 
 def cached_diagonal(op) -> torch.Tensor:
-    """``op.diagonal()`` memoized on the operator object itself (keyed by
-    its value tensor and dtype), so repeated Jacobi solves against one
-    operator take the diagonal once.  Values that require grad are never
-    cached: the diagonal then belongs to that autograd graph."""
+    """``op.diagonal()`` memoized on the operator object itself, keyed by
+    the tensors it is computed from: ``vals`` of an assembled operator, the
+    geometry and coefficient tensors (``traced()``) of a matrix-free one.
+    Repeated Jacobi solves against one operator take the diagonal once.
+    Tensors that require grad are never cached: the diagonal then belongs
+    to that autograd graph."""
     vals = getattr(op, "vals", None)
-    if vals is not None and vals.requires_grad:
+    key = (vals,) if vals is not None else tuple(op.traced()) if hasattr(op, "traced") else ()
+    if any(t.requires_grad for t in key):
         return op.diagonal()
     hit = getattr(op, "_diag_cache", None)
-    if hit is not None and hit[0] is vals:
+    if hit is not None and len(hit[0]) == len(key) and all(a is b for a, b in zip(hit[0], key)):
         return hit[1]
     d = op.diagonal()
-    object.__setattr__(op, "_diag_cache", (vals, d))
+    object.__setattr__(op, "_diag_cache", (key, d))
     return d

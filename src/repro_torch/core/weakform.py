@@ -41,6 +41,7 @@ __all__ = [
     "robin",
     "source",
     "neumann",
+    "reaction",
 ]
 
 MATRIX = "matrix"
@@ -51,10 +52,16 @@ TRACED = "traced"  # marker for a coefficient slot carried as a value
 
 @dataclasses.dataclass(frozen=True)
 class _Kernel:
-    """arity + the local Map: ``fn(ctx, value_size, *coeffs) -> (E,k,k)|(E,k)``."""
+    """arity + the local Map: ``fn(ctx, value_size, *coeffs) -> (E,k,k)|(E,k)``.
+
+    ``symmetric`` declares ``K_e = K_eᵀ`` for every coefficient value (the
+    matrix-free ``rmatvec`` then reuses the forward action); ``spd``
+    declares it symmetric positive (semi-)definite."""
 
     arity: str
     fn: Callable
+    symmetric: bool = False
+    spd: bool = False
 
 
 def _source_kernel(ctx, vs, f):
@@ -62,16 +69,19 @@ def _source_kernel(ctx, vs, f):
 
 
 KERNELS: dict[str, _Kernel] = {
-    "diffusion": _Kernel(MATRIX, lambda ctx, vs, rho: forms.diffusion(ctx, rho)),
+    "diffusion": _Kernel(MATRIX, lambda ctx, vs, rho: forms.diffusion(ctx, rho),
+                         symmetric=True, spd=True),
     "anisotropic_diffusion": _Kernel(
         MATRIX, lambda ctx, vs, a: forms.anisotropic_diffusion(ctx, a)
     ),
     "advection": _Kernel(MATRIX, lambda ctx, vs, beta: forms.advection(ctx, beta)),
-    "mass": _Kernel(MATRIX, lambda ctx, vs, c: forms.mass(ctx, c)),
+    "mass": _Kernel(MATRIX, lambda ctx, vs, c: forms.mass(ctx, c), symmetric=True, spd=True),
     "elasticity": _Kernel(
-        MATRIX, lambda ctx, vs, lam, mu, scale: forms.elasticity(ctx, lam, mu, scale=scale)
+        MATRIX, lambda ctx, vs, lam, mu, scale: forms.elasticity(ctx, lam, mu, scale=scale),
+        symmetric=True, spd=True,
     ),
     "source": _Kernel(VECTOR, _source_kernel),
+    "reaction": _Kernel(VECTOR, lambda ctx, vs, u, fn: forms.nonlinear_reaction(ctx, u, fn)),
 }
 
 
@@ -218,3 +228,9 @@ def neumann(g=None, *, on) -> WeakForm:
     if on is None:
         raise ValueError("neumann(...) needs on=<FacetAssembler>")
     return WeakForm((Term("source", (g,), domain=on),))
+
+
+def reaction(u_nodal, fn: Callable) -> WeakForm:
+    """Semi-linear load ∫ fn(u) v with nodal coefficients ``u_nodal``
+    (``fn`` acts pointwise on the quadrature values of u)."""
+    return WeakForm((Term("reaction", (u_nodal, fn)),))

@@ -3,7 +3,9 @@
 The torch port of ``repro.fem.tensormesh``.  Problem classes own (mesh →
 space → assembler → condenser) and expose:
 
-* ``solve()`` — assembly plus a preconditioned Krylov solve;
+* ``solve()`` — assembly plus a preconditioned Krylov solve; with
+  ``backend="matfree"`` only the load is assembled and the Krylov loop
+  applies the form matrix-free (gather, per-element action, B2 scatter);
 * ``PoissonProblem.solve_batch(fs)`` — many-query batched right-hand sides
   (SM B.1.4): the matrix assembled once, the B loads in one batched
   assembly, one CG solve per instance;
@@ -36,6 +38,7 @@ from ..core import (
     make_matvec,
     make_preconditioner,
     make_residual,
+    matfree_operator,
     resolve_solver_spec,
     sparse_solve_batched,
     weakform as wf,
@@ -86,8 +89,9 @@ class _ProblemBase:
             where=f"{type(self).__name__}.{where}")
 
     def _solve_system(self, k, f, spec: SolverSpec, backend=None, return_info=False):
-        """Krylov solve on an assembled operator with the inner matvec from
-        the registry (:mod:`repro_torch.core.matvec`).  A ``maxiter`` exit
+        """Krylov solve on an operator (assembled, or matrix-free on the
+        ``matfree`` backend) with the inner matvec from the registry
+        (:mod:`repro_torch.core.matvec`).  A ``maxiter`` exit
         is reported through :func:`repro_torch.telemetry.check_convergence`
         and the ``converged`` flag; the relative residual is computed with
         the backend's fused residual."""
@@ -107,6 +111,27 @@ class _ProblemBase:
         res = _SolveResult(u, info.iters, rel, info.converged)
         return (res, info) if return_info else res
 
+    def _solve_matfree(self, form, load, spec: SolverSpec, dirichlet_values=0.0,
+                       return_info=False, store="context", condensed=False):
+        """Matrix-free Krylov solve: the operator applies ``form`` straight
+        from the plan (:func:`~repro_torch.core.matfree_operator`, ``store``
+        its memory/speed point), Jacobi from a diagonal-only assembly,
+        Dirichlet condensation as an apply wrapper; the right-hand-side lift
+        runs one apply of the uncondensed operator.  No global values are
+        formed.  (For a differentiable solve use
+        :func:`~repro_torch.core.matfree_solve` on the same operator.)"""
+        if condensed:
+            raise NotImplementedError(
+                "condensed=True (static condensation of the higher-order dofs) is not "
+                "ported yet: it comes with the element tensor algebra (ROADMAP queue A11)")
+        op_full = matfree_operator(self.plan, form, store=store)
+        if isinstance(dirichlet_values, (int, float)) and dirichlet_values == 0.0:
+            f = self.bc.project_residual(load)  # homogeneous: the lift is a mask
+        else:
+            f = self.bc.lift(op_full, load, dirichlet_values)
+        return self._solve_system(op_full.condensed(self.bc), f, spec, backend="matfree",
+                                  return_info=return_info)
+
 
 class PoissonProblem(_ProblemBase):
     """−∇·(ρ∇u) = f with homogeneous Dirichlet BCs (paper Benchmark I)."""
@@ -117,16 +142,24 @@ class PoissonProblem(_ProblemBase):
         return self.bc.apply(k, load)
 
     def solve(self, rho=None, f=1.0, spec: SolverSpec | None = None,
-              tol=None, maxiter=None, backend=None, return_info=False):
+              tol=None, maxiter=None, backend=None, return_info=False,
+              condensed=False, store="context"):
         """Assemble and solve; solver knobs come in as one
         :class:`~repro_torch.core.SolverSpec` (``spec=``; legacy ``tol=`` /
         ``maxiter=`` kwargs still work but are deprecated).  ``backend``
         names the Krylov matvec and residual of the registry: ``"ell"``
         (default, broadcast-plan kernels), ``"ell_stream"`` (streaming
-        kernels) or ``"csr"``.
-        ``return_info=True`` appends the raw
+        kernels), ``"csr"``, or ``"matfree"`` (no matrix assembly: only the
+        load is assembled, and ``store`` picks the matrix-free operator's
+        store).  ``return_info=True`` appends the raw
         :class:`~repro_torch.core.SolveInfo`."""
         spec = self._spec(spec, tol, maxiter, "solve")
+        if backend == "matfree":
+            load = self.asm.assemble_rhs(wf.source(f))
+            return self._solve_matfree(wf.diffusion(rho), load, spec, return_info=return_info,
+                                       store=store, condensed=condensed)
+        if condensed:
+            raise ValueError("condensed=True needs the matfree backend")
         k, load = self.assemble(rho, f)
         return self._solve_system(k, load, spec, backend=backend, return_info=return_info)
 
@@ -188,6 +221,11 @@ class AdvectionDiffusionProblem(_ProblemBase):
               spec: SolverSpec | None = None, tol=None, maxiter=None,
               backend=None, return_info=False):
         spec = self._spec(spec, tol, maxiter, "solve")
+        if backend == "matfree":
+            form = wf.diffusion(eps) + wf.advection(self._beta(beta))
+            load = self.asm.assemble_rhs(wf.source(f))
+            return self._solve_matfree(form, load, spec, dirichlet_values=dirichlet_values,
+                                       return_info=return_info)
         k, load = self.assemble(eps, beta, f, dirichlet_values)
         return self._solve_system(k, load, spec, backend=backend, return_info=return_info)
 
@@ -220,6 +258,10 @@ class ElasticityProblem(_ProblemBase):
     def solve(self, body_force=None, spec: SolverSpec | None = None,
               tol=None, maxiter=None, backend=None, return_info=False):
         spec = self._spec(spec, tol, maxiter, "solve")
+        if backend == "matfree":
+            load = self.asm.assemble_rhs(wf.source(self._body_force(body_force)))
+            return self._solve_matfree(wf.elasticity(self.lam, self.mu), load, spec,
+                                       return_info=return_info)
         k, f = self.assemble(body_force)
         return self._solve_system(k, f, spec, backend=backend, return_info=return_info)
 

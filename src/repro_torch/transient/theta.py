@@ -13,9 +13,11 @@ respect to the operator values and the initial condition (adjoint solves
 in the backward pass), with optional checkpoint segmentation.  The ELL
 backends (``"ell"``, ``"ell_pallas"``, ``"ell_stream"``) run the inner
 matvecs through the registry's kernels in a plain Krylov loop warm-started
-at uⁿ: the fast forward path.  Dirichlet data may vary per step: the
-condensed matrix is formed once and only the right-hand-side lift runs in
-the loop.
+at uⁿ: the fast forward path.  ``"matfree"`` steps on matrix-free
+operators (:meth:`ThetaIntegrator.from_form`) through the differentiable
+:func:`~repro_torch.core.matfree_solve`: no CSR values are formed.
+Dirichlet data may vary per step: the condensed operator is formed once
+and only the right-hand-side lift runs in the loop.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ import torch
 
 from ..core.boundary import DirichletCondenser
 from ..core.matvec import make_matvec
+from ..core.operator import MatFreeOperator, matfree_operator
 from ..core.solvers import (
     SolverSpec,
     _method,
     make_preconditioner,
+    matfree_solve,
     resolve_solver_spec,
     sparse_solve,
 )
@@ -42,10 +46,8 @@ __all__ = ["ThetaIntegrator", "BACKWARD_EULER", "CRANK_NICOLSON"]
 BACKWARD_EULER = 1.0
 CRANK_NICOLSON = 0.5
 
-_MATFREE_LATER = {
-    "matfree": "the matrix-free operators (ROADMAP queue A9)",
-    "matfree_sharded": "the sharded matrix-free operators (ROADMAP queue A16)",
-}
+# backends whose step is a differentiable solve on the integrator's operators
+_SOLVE_BACKENDS = ("csr", "matfree")
 
 
 @dataclasses.dataclass
@@ -58,8 +60,11 @@ class ThetaIntegrator:
     differentiable through ``sparse_solve``; any other registered backend
     (``"ell"``, ``"ell_pallas"``, ``"ell_stream"``) runs the right-hand
     side and the Krylov matvecs through that backend, warm-started at the
-    previous state (forward only).  ``"matfree"`` and ``"matfree_sharded"``
-    are not ported yet and raise ``NotImplementedError``."""
+    previous state (forward only).  ``"matfree"`` (build with
+    :meth:`from_form`) steps on matrix-free operators through the
+    differentiable :func:`~repro_torch.core.matfree_solve`.
+    ``"matfree_sharded"`` is not ported yet and raises
+    ``NotImplementedError``."""
 
     mass: CSR | None
     stiff: CSR | None
@@ -73,14 +78,14 @@ class ThetaIntegrator:
     backend: str = "csr"
     # effective operators; pass directly (see from_form) or leave None to
     # have them formed from mass/stiff (same pattern as M / K)
-    lhs_full: CSR | None = None
-    rhs_op: CSR | None = None
+    lhs_full: CSR | MatFreeOperator | None = None
+    rhs_op: CSR | MatFreeOperator | None = None
 
     def __post_init__(self):
-        if self.backend in _MATFREE_LATER:
+        if self.backend == "matfree_sharded":
             raise NotImplementedError(
-                f"ThetaIntegrator(backend={self.backend!r}) is not ported yet: it comes "
-                f"with {_MATFREE_LATER[self.backend]}")
+                "ThetaIntegrator(backend='matfree_sharded') is not ported yet: it comes "
+                "with the sharded matrix-free operators (ROADMAP queue A16)")
         # M + θΔtK is SPD for θ ≥ 0 → CG default
         self.spec = resolve_solver_spec(
             self.spec, method=self.solver, tol=self.tol, atol=self.tol,
@@ -93,8 +98,13 @@ class ThetaIntegrator:
             self.lhs_full = axpy_csr(1.0, self.mass, self.theta * self.dt, self.stiff)
         if self.rhs_op is None:
             self.rhs_op = axpy_csr(1.0, self.mass, -(1.0 - self.theta) * self.dt, self.stiff)
-        self.lhs = self.lhs_full if self.bc is None else self.bc.apply_matrix_only(self.lhs_full)
-        if self.backend != "csr":
+        if self.bc is None:
+            self.lhs = self.lhs_full
+        elif isinstance(self.lhs_full, CSR):
+            self.lhs = self.bc.apply_matrix_only(self.lhs_full)
+        else:  # matrix-free: condensation as an apply wrapper
+            self.lhs = self.lhs_full.condensed(self.bc)
+        if self.backend not in _SOLVE_BACKENDS:
             self._lhs_mv = make_matvec(self.lhs, self.backend)
             self._rhs_mv = make_matvec(self.rhs_op, self.backend)
             self._precond = make_preconditioner(self.lhs, self.spec.precond)
@@ -106,15 +116,21 @@ class ThetaIntegrator:
         ``lhs = assemble(mass(c) + θΔt·form)`` and
         ``rhs_op = assemble(mass(c) − (1−θ)Δt·form)``.  A form with an
         advection term makes the lhs nonsymmetric, so the solver then
-        defaults to BiCGSTAB (CG otherwise)."""
+        defaults to BiCGSTAB (CG otherwise).  With ``backend="matfree"``
+        both are matrix-free operators
+        (:func:`~repro_torch.core.matfree_operator`) instead."""
         from ..core import weakform as wf
 
         terms = wf._as_form(form).terms
         if kw.get("spec") is None and kw.get("solver") is None:
             kw["spec"] = SolverSpec(
                 method="bicgstab" if any(t.kind == "advection" for t in terms) else "cg")
-        lhs = asm.assemble(wf.mass(mass_coeff) + (theta * dt) * form)
-        rhs = asm.assemble(wf.mass(mass_coeff) + (-(1.0 - theta) * dt) * form)
+        lhs_form = wf.mass(mass_coeff) + (theta * dt) * form
+        rhs_form = wf.mass(mass_coeff) + (-(1.0 - theta) * dt) * form
+        if kw.get("backend") == "matfree":
+            lhs, rhs = matfree_operator(asm.plan, lhs_form), matfree_operator(asm.plan, rhs_form)
+        else:
+            lhs, rhs = asm.assemble(lhs_form), asm.assemble(rhs_form)
         return cls(None, None, dt, theta=theta, bc=bc, lhs_full=lhs, rhs_op=rhs, **kw)
 
     # -- one step --------------------------------------------------------------
@@ -123,7 +139,7 @@ class ThetaIntegrator:
         the Dirichlet data at tⁿ⁺¹ (scalar, (n_bc,), or full field).
         ``return_info=True`` also returns the step's
         :class:`~repro_torch.core.SolveInfo`."""
-        b = self.rhs_op.matvec(u) if self.backend == "csr" else self._rhs_mv(u)
+        b = self.rhs_op.matvec(u) if self.backend in _SOLVE_BACKENDS else self._rhs_mv(u)
         if load is not None:
             b = b + self.dt * load
         if self.bc is None:
@@ -136,6 +152,8 @@ class ThetaIntegrator:
             b = self.bc.lift(self.lhs_full, b, bc_values)
         if self.backend == "csr":
             return sparse_solve(self.lhs, b, self.spec, return_info=return_info)
+        if self.backend == "matfree":
+            return matfree_solve(self.lhs, b, self.spec, return_info=return_info)
         u_new, info = _method(self.spec.method)(
             self._lhs_mv, b, x0=u, tol=self.spec.tol, atol=self.spec.atol,
             maxiter=self.spec.maxiter, m=self._precond)

@@ -115,9 +115,19 @@ def test_matvec_registry():
         torch.testing.assert_close(tc.make_matvec(k, backend)(x), want, atol=1e-13, rtol=0)
         torch.testing.assert_close(tc.make_residual(k, backend)(x, f), want - f,
                                    atol=1e-13, rtol=0)
-    for backend in ("matfree", "matfree_sharded"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tc.make_matvec(k, backend)
+    # matfree runs a matrix-free operator (not an assembled one); matfree_sharded is A16
+    m = tc.unit_square_tri(4)
+    plan = tc.build_plan(tc.FunctionSpace(m, tc.element_for_mesh(m)), device="cpu")
+    op = tc.matfree_operator(plan, tc.weakform.diffusion(1.5))
+    xm = torch.as_tensor(np.random.default_rng(4).normal(size=plan.num_dofs))
+    want_m = tc.assemble(plan, tc.weakform.diffusion(1.5)).matvec(xm)
+    torch.testing.assert_close(tc.make_matvec(op, "matfree")(xm), want_m, atol=1e-13, rtol=0)
+    torch.testing.assert_close(tc.make_residual(op, "matfree")(xm, xm), want_m - xm,
+                               atol=1e-13, rtol=0)
+    with pytest.raises(TypeError, match="matrix-free operator"):
+        tc.make_matvec(k, "matfree")
+    with pytest.raises(NotImplementedError, match="A16"):
+        tc.make_matvec(k, "matfree_sharded")
     with pytest.raises(ValueError):
         tc.make_matvec(k, "nope")
     tc.register_matvec_backend("double_test", lambda op: (lambda v: 2 * op.matvec(v)),

@@ -77,11 +77,13 @@ def _theta_pair(mesh_key, theta, backend, from_form):
 
 @pytest.mark.parametrize("mesh_key", list(MESHES))
 @pytest.mark.parametrize("theta", [BACKWARD_EULER, CRANK_NICOLSON])
-@pytest.mark.parametrize("backend", ["csr", "ell", "ell_stream"])
+@pytest.mark.parametrize("backend", ["csr", "ell", "ell_stream", "matfree"])
 def test_theta_rollout_matches_jax(mesh_key, theta, backend):
     """Three steps of each method on each backend: trajectories to 1e-10,
     per-step iterations within ±1 (the JAX ``ell_stream`` run is the
-    interpret-mode Pallas kernel)."""
+    interpret-mode Pallas kernel; ``matfree`` on tet3 steps on matrix-free
+    operators from ``from_form``, on tri8 through ``matfree_solve`` on the
+    assembled ones)."""
     j, t, u0 = _theta_pair(mesh_key, theta, backend, from_form=(mesh_key == "tet3"))
     jtraj, jinfo = j.rollout(jnp.asarray(u0), 3, return_info=True)
     ttraj, tinfo = t.rollout(torch.as_tensor(u0), 3, return_info=True)
@@ -170,6 +172,40 @@ def test_csr_rollout_gradients_match_jax(checkpoint_every):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-8 * np.abs(want).max(), rtol=0)
 
 
+def test_theta_matfree_equals_csr_and_gradient_matches_jax():
+    """Crank–Nicolson on matrix-free operators against the assembled
+    ``csr`` rollout (1e-10, iterations ±1), and ∂/∂κ of the trajectory's
+    squared norm through ``matfree_solve`` against ``jax.grad`` (1e-8
+    relative)."""
+    (jasm, jbc, _, _), (tasm, tbc, _, _), u0 = _setup("tri8")
+    spec = dict(method="cg", tol=1e-12, atol=1e-12)
+
+    def torch_integ(kappa, backend):
+        return ThetaIntegrator.from_form(tasm, twf.diffusion(kappa), 0.01, theta=CRANK_NICOLSON,
+                                         bc=tbc, spec=tc.SolverSpec(**spec), backend=backend)
+
+    trajs = {be: torch_integ(1.3, be).rollout(torch.as_tensor(u0), 4, return_info=True)
+             for be in ("matfree", "csr")}
+    torch.testing.assert_close(trajs["matfree"][0], trajs["csr"][0], atol=1e-10, rtol=0)
+    assert (trajs["matfree"][1].iters - trajs["csr"][1].iters).abs().max() <= 1
+
+    @jax.jit
+    def jgrad(kappa):
+        def loss(c):
+            integ = JTheta.from_form(jasm, jwf.diffusion(c), 0.01, theta=J_CN, bc=jbc,
+                                     spec=jc.SolverSpec(**spec), backend="matfree")
+            return jnp.sum(integ.rollout(jnp.asarray(u0), 3) ** 2)
+
+        return jax.value_and_grad(loss)(kappa)
+
+    jval, jg = jgrad(1.3)
+    kappa = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+    loss = (torch_integ(kappa, "matfree").rollout(torch.as_tensor(u0), 3) ** 2).sum()
+    assert float(loss.detach()) == pytest.approx(float(jval), rel=1e-12)
+    g, = torch.autograd.grad(loss, kappa)
+    assert float(g) == pytest.approx(float(jg), rel=1e-8)
+
+
 def test_checkpoint_segments_preserve_values_and_grads():
     (_, _), (tbc, tmass), u0, lhs, rhs, wts, dt = _lhs_loss_inputs()
     spec = tc.SolverSpec(method="cg", tol=1e-13, atol=1e-15)
@@ -206,10 +242,15 @@ def test_axpy_and_converted_operators_share_one_pattern():
 
 
 def test_matfree_backends_are_not_ported_yet():
-    _, (tasm, tbc, tmass, tstiff), _ = _setup("tri8")
-    for backend, queue in (("matfree", "A9"), ("matfree_sharded", "A16")):
-        with pytest.raises(NotImplementedError, match=queue):
-            ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend=backend)
+    # matfree is ported (A9): on assembled operators it steps through
+    # matfree_solve, equal to the csr rollout; matfree_sharded is A16
+    _, (tasm, tbc, tmass, tstiff), u0 = _setup("tri8")
+    u0 = torch.as_tensor(u0)
+    traj = ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="matfree").rollout(u0, 3)
+    want = ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="csr").rollout(u0, 3)
+    torch.testing.assert_close(traj, want, atol=1e-14, rtol=0)
+    with pytest.raises(NotImplementedError, match="A16"):
+        ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="matfree_sharded")
 
 
 def test_rollout_info_feeds_telemetry():
