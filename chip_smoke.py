@@ -97,9 +97,24 @@ Phases, one JSON line each:
    ±1 against ``csr``'s); Allen–Cahn with ``NewtonKrylovIntegrator`` on
    ``unit_square_tri(512)`` (‖G(u)‖ < 1e-8) and at n = 8 against the JAX
    package's numbers;
-16. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+16. opt — TensorOpt on the paper's 60×30 cantilever: compliance, CG
+   iterations and ‖∂C/∂ρ‖ at ρ = 0.5 against pinned JAX numbers, the
+   autograd sensitivity against Eq. B.28 (1e-5), 10 MMA iterations (the
+   first 3 compliances pinned; C below 0.8 of its start) and 10 OC
+   iterations (below 0.7, volume held), a multistart family of 8 (one
+   batched B2 launch in ``compliance_batch``, each instance equal to its
+   single call, 1e-10);
+17. pils — physics-informed learning: at unit_square_tri(16) the Galerkin
+   residual loss on ``ell`` (one B4 launch per loss and gradient) against
+   ``csr`` (1e-9; its gradient in u 1e-10) and ``matfree``, 10 Adam steps
+   of the paper's SIREN on ``csr`` and ``ell`` against pinned JAX losses
+   (1e-8); at unit_square_tri(256) Adam it/s for TensorPILS on ``csr``,
+   ``ell``, ``matfree`` and for PINN, ``fit_family`` over 8 fields (one
+   batched B1 and B2 build), and 5 epochs of the wave AGN (finite, falling
+   loss);
+18. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-17. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+19. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -121,7 +136,7 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
+``opt``, ``pils``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
 (after other phases: ``--only mixed_bc,elasticity,batched,trace_drops``).
@@ -2350,6 +2365,400 @@ def phase_matfree(prob):
     return out
 
 
+# The JAX package's numbers for the paper's 60×30 cantilever
+# (CantileverProblem() at its defaults), measured on the CPU and held
+# against the JAX package by tests/test_torch_opt.py: at ρ = 0.5 the
+# compliance, ‖∂C/∂ρ‖₂ and the CG iterations of the solve; then the
+# compliances C(ρ_k) of the first 3 MMA iterates (the loop of
+# examples/topology_optimization.py).
+JAX_CANTILEVER = {"compliance": 43.39550515685954, "sens_norm": 9.913248529980333,
+                  "iters": 470,
+                  "mma_compliance": [33.4513131774414, 26.749118857975834, 22.487469042101708]}
+OPT_STEPS, MULTISTART_SEED = 10, 8
+# The JAX package's TensorPILS losses over 10 Adam steps (lr 1e-3) of the
+# paper's SIREN (2→64×4→1, ω0 = 30) made by siren_numpy(0), on the K = 4
+# checkerboard of examples/poisson_pils.py at unit_square_tri(16), measured
+# on the CPU and held against the JAX package by
+# tests/test_torch_pils_training.py.
+JAX_PILS_ADAM = [0.8335716640085153, 0.990513486717317, 0.6366382229217824,
+                 0.24314631847024376, 0.14807424069927264, 0.08274758577354219,
+                 0.06442600162323092, 0.045399329219243625, 0.03417688593898358,
+                 0.031836226930561276]
+PILS_GATE_N, PILS_TIME_N, PILS_K = 16, 256, 4
+PILS_HIST_STEPS, PILS_WINDOWS, AGN_EPOCHS = 20, 3, 5
+# Adam steps in one timed window at unit_square_tri(256), 1.5–3 s each on
+# an H100
+PILS_WINDOW_STEPS = {"tensorpils_csr": 400, "tensorpils_ell": 400,
+                     "tensorpils_matfree": 400, "pinn": 55}
+
+
+def siren_numpy(seed: int, hidden: int = 64, depth: int = 4, omega0: float = 30.0) -> dict:
+    """A SIREN parameter tree drawn with numpy (the reference's init bounds:
+    ±1/d_in for the first layer, ±√(6/d_in)/ω0 after it; zero biases), so
+    that the JAX package and the port start from the same weights."""
+    rng = np.random.default_rng(seed)
+    dims = [2] + [hidden] * depth + [1]
+    layers = []
+    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+        bound = 1.0 / d_in if i == 0 else math.sqrt(6.0 / d_in) / omega0
+        layers.append({"w": rng.uniform(-bound, bound, (d_in, d_out)), "b": np.zeros(d_out)})
+    return {"layers": layers, "omega0": np.float64(omega0)}
+
+
+def checkerboard(lib, k: int = PILS_K):
+    """The K-checkerboard source sign(sin(Kπx)·sin(Kπy)) of
+    examples/poisson_pils.py, on ``lib`` (torch or jax.numpy)."""
+    return lambda x: lib.sign(lib.sin(k * math.pi * x[..., 0] + 1e-9)
+                              * lib.sin(k * math.pi * x[..., 1] + 1e-9))
+
+
+def phase_opt():
+    """TensorOpt (A13a) on the paper's 60×30 cantilever (3,782 DoFs, 1,800
+    Q1 elements): compliance and its autograd sensitivity at ρ = 0.5
+    against the JAX package's pinned numbers and Eq. B.28; 10 MMA and 10
+    OC iterations (the first 3 MMA compliances pinned); a multistart
+    family of B = 8 (one batched B2 launch in ``compliance_batch``, each
+    instance equal to its single call).  Gates are read after the phase's
+    line is out."""
+    from repro_torch import kernels
+    from repro_torch.opt import CantileverProblem, MMAState, mma_update, oc_update
+
+    gates, walls = [], {}
+    t_phase = time.perf_counter()
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    prob, walls["setup_s"] = timed(lambda: CantileverProblem(device="cuda"))
+    n = prob.n_elem
+    rho0 = torch.full((n,), 0.5, dtype=torch.float64, device="cuda")
+    kernels.reset_launches()
+    prob.compliance_and_sensitivity(rho0)  # first call: the einsum Map's kernels load
+    (c0, g0), walls["sensitivity_s"] = timed(lambda: prob.compliance_and_sensitivity(rho0))
+    _, info = prob._displacement(rho0)
+    g_an = prob.analytic_sensitivity(rho0)
+    ref = JAX_CANTILEVER
+    single = {"compliance": float(c0), "sens_norm": float(torch.linalg.vector_norm(g0)),
+              "iters": info.iters,
+              "eq_b28_max_rel": float(((g0 - g_an).abs() / g_an.abs()).max())}
+    single["compliance_rel_diff_vs_jax"] = abs(single["compliance"] / ref["compliance"] - 1)
+    single["sens_norm_rel_diff_vs_jax"] = abs(single["sens_norm"] / ref["sens_norm"] - 1)
+    gate(info.converged and abs(info.iters - ref["iters"]) <= 1,
+         f"opt: CG iterations {info.iters} against the JAX package's {ref['iters']}")
+    gate(single["compliance_rel_diff_vs_jax"] <= 1e-9, f"opt: compliance {single}")
+    gate(single["sens_norm_rel_diff_vs_jax"] <= 1e-7, f"opt: ‖∂C/∂ρ‖ {single}")
+    gate(single["eq_b28_max_rel"] <= 1e-5, f"opt: Eq. B.28 {single}")
+
+    def filtered(rho, g):
+        return prob.filter(g * rho) / torch.clamp(rho, min=1e-3)
+
+    # MMA, the loop of examples/topology_optimization.py
+    rho = rho0
+    state = MMAState(low=rho - 0.5, upp=rho + 0.5)
+    dg = torch.full((n,), 1.0 / n, dtype=torch.float64, device="cuda")
+    mma_c = []
+    t0 = time.perf_counter()
+    for _ in range(OPT_STEPS):
+        c, g = prob.compliance_and_sensitivity(rho)
+        mma_c.append(float(c))
+        rho, state = mma_update(rho, filtered(rho, g), rho.mean() - prob.volfrac, dg, state)
+    c_end, _ = prob.compliance_and_sensitivity(rho)
+    torch.cuda.synchronize()
+    walls["mma_s_per_iter"] = (time.perf_counter() - t0) / OPT_STEPS
+    mma = {"compliance": mma_c + [float(c_end)], "volume": float(prob.volume(rho)),
+           "ratio": float(c_end) / mma_c[0]}
+    mma["first3_max_rel_diff_vs_jax"] = max(
+        abs(a / b - 1) for a, b in zip(mma_c[1:4], ref["mma_compliance"]))
+    gate(mma["first3_max_rel_diff_vs_jax"] <= 1e-8,
+         f"opt: MMA compliances {mma_c[1:4]} against the JAX package's {ref['mma_compliance']}")
+    gate(mma["ratio"] < 0.8 and mma["volume"] <= prob.volfrac + 1e-2, f"opt: MMA run {mma}")
+
+    rho = rho0
+    oc_c = []
+    t0 = time.perf_counter()
+    for _ in range(OPT_STEPS):
+        c, g = prob.compliance_and_sensitivity(rho)
+        oc_c.append(float(c))
+        rho = oc_update(rho, filtered(rho, g), prob.volfrac)
+    c_end, _ = prob.compliance_and_sensitivity(rho)
+    torch.cuda.synchronize()
+    walls["oc_s_per_iter"] = (time.perf_counter() - t0) / OPT_STEPS
+    oc = {"compliance": oc_c + [float(c_end)], "volume": float(prob.volume(rho)),
+          "ratio": float(c_end) / oc_c[0]}
+    gate(oc["ratio"] < 0.7 and abs(oc["volume"] - prob.volfrac) < 1e-3, f"opt: OC run {oc}")
+
+    # the multistart family: one batched assembly (B2 once), B solves
+    rho_b = torch.as_tensor(np.random.default_rng(MULTISTART_SEED).uniform(0.3, 0.9, (BATCH, n)),
+                            device="cuda")
+    before = dict(kernels.LAUNCHES)
+    c_b, walls["compliance_batch_s"] = timed(lambda: prob.compliance_batch(rho_b))
+    batch_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    (c_s, g_b), walls["sensitivity_batch_s"] = timed(
+        lambda: prob.compliance_and_sensitivity_batch(rho_b))
+    t0 = time.perf_counter()
+    singles = [prob.compliance_and_sensitivity(rho_b[b]) for b in range(BATCH)]
+    torch.cuda.synchronize()
+    walls["sensitivity_8_singles_s"] = time.perf_counter() - t0
+    (rho_next, _), walls["multistart_step_s"] = timed(lambda: prob.multistart_step(rho_b))
+    launches = dict(kernels.LAUNCHES)
+    multistart = {
+        "B": BATCH, "launches_compliance_batch": batch_launches,
+        "max_rel_diff_c": max(abs(float(c_b[b]) / float(s[0]) - 1) for b, s in enumerate(singles)),
+        "max_rel_diff_c_sens": max(abs(float(c_s[b]) / float(s[0]) - 1)
+                                   for b, s in enumerate(singles)),
+        "max_rel_diff_grad": max(float(torch.linalg.vector_norm(g_b[b] - s[1])
+                                       / torch.linalg.vector_norm(s[1]))
+                                 for b, s in enumerate(singles)),
+        "volumes_after_step": rho_next.mean(dim=1).tolist()}
+    gate(batch_launches["seg_reduce"] == 1 and batch_launches["local_stiffness_p1"] == 0,
+         f"opt: compliance_batch launched {batch_launches}")
+    gate(multistart["max_rel_diff_c"] <= 1e-10 and multistart["max_rel_diff_c_sens"] <= 1e-10
+         and multistart["max_rel_diff_grad"] <= 1e-10, f"opt: multistart {multistart}")
+    gate(launches["seg_reduce"] > 0, "opt path: kernel seg_reduce never launched")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out = {"phase": "opt", "nx": 60, "ny": 30, "elements": n, "dofs": prob.space.num_dofs,
+           "single": single, "mma": mma, "oc": oc, "multistart": multistart, "walls_s": walls,
+           "launches": launches, "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
+def _pils_problem(n):
+    from repro_torch.core import (DirichletCondenser, FunctionSpace, GalerkinAssembler,
+                                  element_for_mesh, unit_square_tri)
+
+    mesh = unit_square_tri(n)
+    space = FunctionSpace(mesh, element_for_mesh(mesh))
+    asm = GalerkinAssembler(space, device="cuda")
+    return space, asm, DirichletCondenser(asm, space.boundary_dofs())
+
+
+def _adam_windows(loss_fns: dict, params) -> dict:
+    """Adam it/s of each loss over ``PILS_WINDOWS`` rounds: after 2 warm
+    steps each, every round times one window of each loss in turn
+    (``PILS_WINDOW_STEPS[name]`` steps from ``params``, no loss read, so the
+    device syncs only at a window's ends) → {name: [it/s a window]}."""
+    from repro_torch.pils import train_adam
+
+    for fn in loss_fns.values():
+        train_adam(fn, params, 2, lr=1e-3)
+    its = {name: [] for name in loss_fns}
+    for _ in range(PILS_WINDOWS):
+        for name, fn in loss_fns.items():
+            its[name].append(train_adam(fn, params, PILS_WINDOW_STEPS[name], lr=1e-3)[2])
+    return its
+
+
+def phase_pils():
+    """Physics-informed learning (A13b).  Gates at unit_square_tri(16) on
+    the K = 4 checkerboard: the Galerkin residual loss on ``ell`` (one B4
+    launch per loss and gradient) against ``csr`` (1e-9, its gradient in u
+    1e-10) and ``matfree``; 10 Adam steps of the paper's SIREN (from
+    ``siren_numpy(0)``) on ``csr`` and ``ell`` against the JAX package's
+    pinned losses.  At unit_square_tri(256) (66,049 DoFs): 20 Adam losses
+    on ``ell`` (B4) and ``matfree`` against ``csr``'s (1e-9), then Adam
+    it/s for TensorPILS on ``csr``, ``ell`` and ``matfree`` and for PINN on
+    the same points over 3 interleaved rounds of windows of 1.5–3 s; ``fit_family``
+    over B = 8 coefficient fields (one batched B1 and one batched B2 launch
+    for the family's matrices, held against their plain versions); 5 epochs of
+    the wave AGN of examples/operator_learning_wave.py (finite, falling
+    loss).  Gates are read after the phase's line is out."""
+    from repro_torch import kernels
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.pils import (GalerkinResidualLoss, adam_init, adam_update, fit_family,
+                                  pinn_poisson_loss, siren_apply, train_adam)
+    from repro_torch.pils.gnn import agn_init, agn_rollout
+    from repro_torch.kernels.ref import local_stiffness_p1_ref, seg_reduce_ref
+
+    gates, walls = [], {}
+    t_phase = time.perf_counter()
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    f = checkerboard(torch)
+    kernels.reset_launches()
+    space, asm, bc = _pils_problem(PILS_GATE_N)
+    losses = {b: GalerkinResidualLoss(asm, bc, f=f, backend=b) for b in ("csr", "ell", "matfree")}
+    build_launches = dict(kernels.LAUNCHES)
+    gate(build_launches["local_stiffness_p1"] >= 1,
+         f"pils: the loss build launched {build_launches}")
+
+    # the residual loss of one u on each backend, and its gradient in u
+    u = torch.as_tensor(np.random.default_rng(1).standard_normal(space.num_dofs), device="cuda")
+    residual = {}
+    for backend, loss in losses.items():
+        x = u.clone().requires_grad_(True)
+        before = dict(kernels.LAUNCHES)
+        val = loss(x)
+        (g,) = torch.autograd.grad(val, x)
+        residual[backend] = {"loss": float(val.detach()), "grad": g,
+                             "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before}}
+    csr = residual["csr"]
+    scale = float(csr["grad"].abs().max())
+    for backend in ("ell", "matfree"):
+        row = residual[backend]
+        row["loss_rel_diff_vs_csr"] = abs(row["loss"] / csr["loss"] - 1)
+        row["grad_max_diff_vs_csr"] = float((row["grad"] - csr["grad"]).abs().max()) / scale
+        gate(row["loss_rel_diff_vs_csr"] <= 1e-9 and row["grad_max_diff_vs_csr"] <= 1e-10,
+             f"pils: {backend} residual loss against csr's: {row['loss_rel_diff_vs_csr']}, "
+             f"{row['grad_max_diff_vs_csr']}")
+    ell_launches = residual["ell"]["launches"]
+    gate(ell_launches["galerkin_residual_ell"] == 1 and ell_launches["spmv_ell"] == 0,
+         f"pils: one ell loss and gradient launched {ell_launches}")
+    for row in residual.values():
+        del row["grad"]
+
+    # 10 Adam steps of the paper's SIREN from numpy weights, against JAX's
+    adam = {}
+    for backend in ("csr", "ell"):
+        params = params_from_numpy(siren_numpy(0), "cuda")
+        before = dict(kernels.LAUNCHES)
+        _, hist, its = train_adam(lambda p, l=losses[backend]: l.loss_from_net(siren_apply, p),
+                                  params, 10, lr=1e-3, log_every=1)
+        adam[backend] = {"losses": hist, "its": its,
+                         "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before},
+                         "max_rel_diff_vs_jax": max(abs(a / b - 1)
+                                                    for a, b in zip(hist, JAX_PILS_ADAM))}
+        gate(adam[backend]["max_rel_diff_vs_jax"] <= 1e-8,
+             f"pils: SIREN losses on {backend} {hist} against the JAX package's {JAX_PILS_ADAM}")
+    gate(adam["ell"]["launches"]["galerkin_residual_ell"] == 10,
+         f"pils: 10 Adam steps on ell launched {adam['ell']['launches']}")
+
+    # unit_square_tri(256): ell (B4) and matfree (einsum Map, B2) against
+    # csr (B1, B2, the CSR matvec) over 20 Adam losses, then the times
+    (space, asm, bc), walls["setup_n256_s"] = timed(lambda: _pils_problem(PILS_TIME_N))
+    params = params_from_numpy(siren_numpy(0), "cuda")
+    rates, loss_fns, hists = {}, {}, {}
+    for backend in ("csr", "ell", "matfree"):
+        loss, build_s = timed(lambda b=backend: GalerkinResidualLoss(asm, bc, f=f, backend=b))
+        name = f"tensorpils_{backend}"
+        loss_fns[name] = lambda p, l=loss: l.loss_from_net(siren_apply, p)
+        before = dict(kernels.LAUNCHES)
+        hists[name] = train_adam(loss_fns[name], params, PILS_HIST_STEPS, lr=1e-3,
+                                 log_every=1)[1]
+        rates[name] = {"build_s": build_s, "first_loss": hists[name][0],
+                       "last_loss": hists[name][-1],
+                       "hist_launches": {k: kernels.LAUNCHES[k] - before[k] for k in before}}
+    hist_csr = hists["tensorpils_csr"]
+    gate(all(math.isfinite(v) for v in hist_csr) and hist_csr[-1] < hist_csr[0],
+         f"pils: TensorPILS on csr at n = {PILS_TIME_N}: {hist_csr}")
+    for backend in ("ell", "matfree"):
+        row = rates[f"tensorpils_{backend}"]
+        row["hist_max_rel_diff_vs_csr"] = max(
+            abs(a / b - 1) for a, b in zip(hists[f"tensorpils_{backend}"], hist_csr))
+        gate(row["hist_max_rel_diff_vs_csr"] <= 1e-9,
+             f"pils: {PILS_HIST_STEPS} Adam losses on {backend} at n = {PILS_TIME_N} "
+             f"{hists[f'tensorpils_{backend}']} against csr's {hist_csr}")
+    ell_hist_launches = rates["tensorpils_ell"]["hist_launches"]
+    gate(ell_hist_launches["galerkin_residual_ell"] == PILS_HIST_STEPS,
+         f"pils: {PILS_HIST_STEPS} Adam steps on ell at n = {PILS_TIME_N} launched "
+         f"{ell_hist_launches}")
+    pts = torch.as_tensor(space.dof_points, device="cuda")
+    free = bc.free_mask.to(torch.bool)
+    interior, boundary = pts[free], pts[~free]
+    f_int = f(interior[None])[0]
+    loss_fns["pinn"] = lambda p: pinn_poisson_loss(siren_apply, p, interior, f_int, boundary)
+    hist = train_adam(loss_fns["pinn"], params, PILS_HIST_STEPS // 2, lr=1e-3, log_every=1)[1]
+    rates["pinn"] = {"points": int(interior.shape[0]), "first_loss": hist[0],
+                     "last_loss": hist[-1]}
+    gate(all(math.isfinite(v) for v in hist), f"pils: PINN losses {hist}")
+    windows, walls["rate_windows_s"] = timed(lambda: _adam_windows(loss_fns, params))
+    for name, its in windows.items():
+        rates[name].update({"its": float(np.median(its)), "its_windows": its,
+                            "window_steps": PILS_WINDOW_STEPS[name]})
+
+    # fit_family over B = 8 coefficient fields
+    rho_b = torch.as_tensor(np.random.default_rng(11).uniform(0.5, 2.0,
+                                                             (BATCH, space.mesh.num_cells)),
+                            device="cuda")
+    before = dict(kernels.LAUNCHES)
+    fit_family(asm, bc, rho_b, steps=2, lr=1e-3)
+    family_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    (u_fit, hist, its, fam_loss), walls["fit_family_s"] = timed(
+        lambda: fit_family(asm, bc, rho_b, steps=200, lr=1e-3, log_every=50))
+    r_single = GalerkinResidualLoss(asm, bc, rho=rho_b[3]).residual(u_fit[3])
+    table = asm.plan.mat_reduce
+    k_plain = bc.apply_matrix_only(asm.plan.batched_csr(seg_reduce_ref(
+        local_stiffness_p1_ref(asm.plan.coords, rho_b), table.rows, table.n_rows, batch=True)))
+    k_err, k_scale = max_err(fam_loss.k.vals, k_plain.vals)
+    family = {"B": BATCH, "its": its, "losses": hist, "launches_build": family_launches,
+              "k_max_abs_err": k_err, "k_scale": k_scale,
+              "single_rel_diff": float((fam_loss.residual(u_fit)[3] - r_single).abs().max()
+                                       / r_single.abs().max())}
+    gate(k_err <= TOL[torch.float64] * k_scale,
+         f"pils: fit_family's batched K against the plain B1 and B2: {k_err} (scale {k_scale})")
+    gate(family_launches["local_stiffness_p1"] == 1 and family_launches["seg_reduce"] == 2,
+         f"pils: fit_family's batched build launched {family_launches}")
+    gate(all(math.isfinite(v) for v in hist) and hist[-1] < hist[0], f"pils: fit_family {hist}")
+    gate(family["single_rel_diff"] <= 1e-12, f"pils: family instance against its single loss "
+                                             f"{family['single_rel_diff']}")
+
+    # 5 epochs of the wave AGN of examples/operator_learning_wave.py
+    w, n_bundles = 4, 8
+    (tp, trajs, coords, edges, deg), walls["agn_setup_s"] = timed(
+        lambda: _agn_setup(w, n_bundles))
+    params = agn_init(torch.Generator().manual_seed(1), w, w, hidden=32, n_layers=3,
+                      device="cuda")
+
+    def agn_loss(p):
+        tot = 0.0
+        for traj in trajs[:4]:
+            pred = agn_rollout(p, traj[:w].T, coords, edges, deg, n_bundles, tp.interior)
+            tot = tot + tp.wave_trajectory_loss(torch.cat([traj[w - 2:w], pred.T]),
+                                                normalized=True)
+        return tot / 4
+
+    state = adam_init(params)
+    vg = torch.func.grad_and_value(agn_loss)
+    agn_hist = []
+    t0 = time.perf_counter()
+    for _ in range(AGN_EPOCHS):
+        grads, val = vg(params)
+        params, state = adam_update(params, grads, state, 1e-3)
+        agn_hist.append(float(val))
+    walls["agn_s_per_epoch"] = (time.perf_counter() - t0) / AGN_EPOCHS
+    gate(all(math.isfinite(v) for v in agn_hist) and agn_hist[-1] < agn_hist[0],
+         f"pils: AGN losses {agn_hist}")
+    launches = dict(kernels.LAUNCHES)
+    for name in ("local_stiffness_p1", "seg_reduce", "galerkin_residual_ell"):
+        gate(launches[name] > 0, f"pils path: kernel {name} never launched")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out = {"phase": "pils", "gate_n": PILS_GATE_N, "time_n": PILS_TIME_N,
+           "time_dofs": space.num_dofs, "build_launches": build_launches,
+           "residual": residual, "adam": adam, "rates": rates, "family": family,
+           "agn": {"losses": agn_hist, "nodes": int(coords.shape[0])}, "walls_s": walls,
+           "launches": launches, "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
+def _agn_setup(w, n_bundles):
+    """The wave problem of examples/operator_learning_wave.py on
+    disk_tri(6): four training trajectories from the Newmark reference
+    (initial conditions from a torch.Generator), the element graph and
+    degrees on the card."""
+    from repro_torch.core import disk_tri
+    from repro_torch.pils.gnn import element_graph_edges
+    from repro_torch.pils.operator import TimeDependentProblem, random_initial_condition
+    from repro_torch.transient import batched_rollout
+
+    tp = TimeDependentProblem(disk_tri(6), dt=5e-4, c=4.0, device="cuda")
+    edges = element_graph_edges(tp.mesh.cells)
+    deg = np.maximum(np.bincount(edges[:, 1], minlength=tp.mesh.num_vertices), 1.0)
+    gen = torch.Generator().manual_seed(0)
+    u0s = torch.stack([random_initial_condition(gen, tp.space.dof_points, device="cuda")
+                       * tp.bc.free_mask for _ in range(4)])
+    refs = batched_rollout(tp.newmark_integrator(), u0s, w + w * n_bundles)
+    trajs = [torch.cat([u0s[i][None], refs[i]]) for i in range(4)]
+    return (tp, trajs, torch.as_tensor(tp.mesh.points, device="cuda"),
+            torch.as_tensor(edges, device="cuda"), torch.as_tensor(deg, device="cuda"))
+
+
 TRACE_OPENINGS = ("none", "one_kernel", "sleep", "pad")
 TRACE_REPEATS = {"local": 8, "context": 3, "coords": 2}
 
@@ -2469,7 +2878,7 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "trace_drops", "quickstart", "kernels_offsets64")
+               "matfree", "opt", "pils", "trace_drops", "quickstart", "kernels_offsets64")
 
 
 def main(argv=None) -> int:
@@ -2524,6 +2933,8 @@ def main(argv=None) -> int:
     elasticity = phase_elasticity(bw, fp64)
     batched = phase_batched(prob, bw, fp64)
     matfree = phase_matfree(prob)
+    opt = phase_opt()
+    pils = phase_pils()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -2535,7 +2946,8 @@ def main(argv=None) -> int:
     launches = {kname: counts[kname] for kname, (_, counts) in paths.items()}
     # and on this slice's paths, each counted from 0 around its own run
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
-             "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"]}
+             "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
+             "opt": opt["launches"], "pils": pils["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -2577,6 +2989,8 @@ def run_only(only) -> int:
               "elasticity": lambda: phase_elasticity(*card_peaks(name)),
               "batched": lambda: phase_batched(None, *card_peaks(name)),
               "matfree": lambda: phase_matfree(None),
+              "opt": phase_opt,
+              "pils": phase_pils,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

@@ -4,7 +4,9 @@ The JAX side exports its state with ``np.asarray`` (mesh ``points`` /
 ``cells`` / ``cell_type``, coefficients, a CSR's or a BatchedCSR's
 ``vals`` / ``indptr`` / ``indices`` / ``shape``, a MixedBCPoisson's facet
 sets); :func:`from_numpy` turns such a dict into the port's objects on a
-device, so both packages compute on the same inputs.
+device, so both packages compute on the same inputs.  Parameter trees
+(SIREN, AGN, an Adam state: JAX PRNG draws that torch cannot reproduce)
+come across with :func:`params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from .core.assembly import DTYPE, resolve_device
 from .core.mesh import Mesh
 from .core.sparse import CSR, BatchedCSR, CSRPattern
 
-__all__ = ["from_numpy"]
+__all__ = ["from_numpy", "params_from_numpy"]
 
 _MESH_KEYS = ("points", "cells", "cell_type")
 _CSR_KEYS = ("vals", "indptr", "indices", "shape")
@@ -84,3 +86,20 @@ def from_numpy(state: dict, device=None) -> dict:
         else:
             out[key] = _tensor(value, device)
     return out
+
+
+def params_from_numpy(tree, device=None):
+    """A nested dict/list/tuple of numpy arrays or scalars (a parameter
+    tree exported with ``jax.tree.map(np.asarray, params)``) → the same
+    tree of tensors on ``device``: float64 for floating data, int64 for
+    integer data."""
+    device = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(convert(v) for v in t)
+        return _tensor(t, device)
+
+    return convert(tree)

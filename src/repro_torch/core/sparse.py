@@ -133,10 +133,12 @@ class CSR:
 
     # -- ops ---------------------------------------------------------------
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x via gather + index-add over rows."""
-        contrib = self.vals * x[self._dev("indices")]
-        out = torch.zeros(self.shape[0], dtype=contrib.dtype, device=contrib.device)
-        return out.index_add(0, self._dev("row_of_nnz"), contrib)
+        """y = A @ x via gather + index-add over rows, on the last axis of
+        ``x`` (any leading axes, e.g. a trajectory's time axis)."""
+        contrib = self.vals * x[..., self._dev("indices")]
+        out = torch.zeros((*x.shape[:-1], self.shape[0]), dtype=contrib.dtype,
+                          device=contrib.device)
+        return out.index_add(-1, self._dev("row_of_nnz"), contrib)
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A.T @ x (scatter over columns)."""

@@ -146,6 +146,21 @@ def test_rmatvec_and_dense_match_jax():
     np.testing.assert_array_equal(st["csr"].to_scipy().toarray(), kj.to_scipy().toarray())
 
 
+def test_matvec_over_leading_axes_matches_jax_vmap():
+    """``CSR.matvec`` on ``(T, B, n)`` is the 1-D matvec of each row, as
+    ``jax.vmap`` of the reference's matvec gives it."""
+    kj, _, st = _condensed("nonsym")
+    x = np.random.default_rng(5).normal(size=(3, 2, kj.shape[0]))
+    got = st["csr"].matvec(torch.as_tensor(x))
+    assert got.shape == (3, 2, kj.shape[0])
+    want = jax.vmap(jax.vmap(kj.matvec))(jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-13)
+    for t in range(3):
+        for b in range(2):
+            torch.testing.assert_close(got[t, b], st["csr"].matvec(torch.as_tensor(x[t, b])),
+                                       rtol=0, atol=0)
+
+
 def test_convergence_policy_and_telemetry():
     _, _, st = _condensed("spd")
     k, f = st["csr"], st["f"]
