@@ -112,9 +112,24 @@ Phases, one JSON line each:
    ``ell``, ``matfree`` and for PINN, ``fit_family`` over 8 fields (one
    batched B1 and B2 build), and 5 epochs of the wave AGN (finite, falling
    loss);
-18. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+18. elemalg — the element tensor algebra: ``PoissonProblem(
+   unit_square_tri(256), degree=2).solve(backend="matfree",
+   condensed=True)`` (263,169 DoFs, the 66,049 vertices the interface)
+   against the uncondensed ``matfree`` and ``ell`` solves (fewer outer
+   iterations; at a tight inner tolerance u within 1e-8·max|u| and the
+   interior rows of a loose solve within 1e-9·‖f‖∞), B2 on the scaffold's
+   compact tables bit for bit against the ordered plain sum; the condensed
+   solve at n = 64 and jacobi/ebe/chebyshev on anisotropic P1 at n = 32
+   against pinned JAX numbers; ∂/∂ρ through ``condensed_solve`` against
+   ``sparse_solve`` (1e-8 relative); jacobi/ebe/chebyshev on anisotropic
+   P1 at unit_square_tri(512) (ebe and chebyshev in fewer iterations); EbE
+   on the ``coords`` store and Chebyshev on ``ell`` on the n = 64 main
+   path (u within 1e-8 of Jacobi's, fewer iterations; B1–B4 counted by
+   the wrappers and a profiler trace); times of ``factorize``,
+   ``ElementFactors.solve``, an EbE, a Chebyshev and a Schur apply;
+19. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-19. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+20. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -136,7 +151,7 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``opt``, ``pils``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
+``opt``, ``pils``, ``elemalg``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
 (after other phases: ``--only mixed_bc,elasticity,batched,trace_drops``).
@@ -2392,6 +2407,17 @@ PILS_WINDOW_STEPS = {"tensorpils_csr": 400, "tensorpils_ell": 400,
                      "tensorpils_matfree": 400, "pinn": 55}
 
 
+# The JAX package's numbers for the element tensor algebra (A11), measured
+# on the CPU and held against the JAX package by tests/test_torch_elemalg.py:
+# the outer CG iterations and max u of PoissonProblem(unit_square_tri(64),
+# degree=2).solve(backend="matfree", condensed=True) at CG tol = atol =
+# 1e-12, and the CG iterations of matfree_solve with each preconditioner on
+# the condensed anisotropic P1 operator (diag(100, 1)) at unit_square_tri(32)
+# (tol = atol = 1e-10, the set-up of tests/test_elemalg.py).
+JAX_ELEMALG = {"condensed_n": 64, "condensed_iters": 77, "condensed_max_u": 0.0736713542419238,
+               "precond_n": 32, "precond_iters": {"jacobi": 152, "ebe": 107, "chebyshev": 68}}
+
+
 def siren_numpy(seed: int, hidden: int = 64, depth: int = 4, omega0: float = 30.0) -> dict:
     """A SIREN parameter tree drawn with numpy (the reference's init bounds:
     ±1/d_in for the first layer, ±√(6/d_in)/ω0 after it; zero biases), so
@@ -2759,6 +2785,281 @@ def _agn_setup(w, n_bundles):
             torch.as_tensor(edges, device="cuda"), torch.as_tensor(deg, device="cuda"))
 
 
+# Element tensor algebra (A11): static condensation of P2 at
+# unit_square_tri(ELEMALG_COND_N) (263,169 DoFs, 66,049 vertices as the
+# interface), the preconditioners on anisotropic P1 Poisson (diag(100, 1))
+# at unit_square_tri(ELEMALG_PRECOND_N) (263,169 DoFs), the gradient at
+# the pins' size.
+ELEMALG_COND_N, ELEMALG_PRECOND_N = 256, 512
+ANISO_TENSOR = ((100.0, 0.0), (0.0, 1.0))
+# The inner CG tolerance of the condensed solves that the 1e-8 and 1e-9
+# gates read.  The default inner solve stops at ‖r_i‖ ≤ 1e-12 (absolute at
+# these loads: ‖f_i‖ ≈ 2e-3), which leaves u_cond 1.7e-8·max|u| from the
+# uncondensed solution at n = 256 and the interior rows near 1e-13 (the port
+# on the CPU, as the JAX package's algorithm does); at 1e-15 they are
+# 2.6e-11·max|u| apart.
+ELEMALG_TIGHT_INNER = 1e-15
+
+
+def _aniso_problem(n):
+    """The condensed anisotropic P1 operator (diag(100, 1), ``context``
+    store) on unit_square_tri(n) and its masked unit load."""
+    from repro_torch.core import (DirichletCondenser, FunctionSpace, GalerkinAssembler,
+                                  element_for_mesh, matfree_operator, unit_square_tri,
+                                  weakform as wf)
+
+    mesh = unit_square_tri(n)
+    space = FunctionSpace(mesh, element_for_mesh(mesh, 1))
+    asm = GalerkinAssembler(space, device="cuda")
+    bc = DirichletCondenser(asm, space.boundary_dofs())
+    a = torch.tensor(ANISO_TENSOR, dtype=torch.float64, device="cuda")
+    op = matfree_operator(asm.plan, wf.anisotropic_diffusion(a)).condensed(bc)
+    return op, bc.project_residual(asm.assemble_rhs(wf.source(1.0)))
+
+
+def phase_elemalg(prob):
+    """Element tensor algebra (A11).  The path, counted from 0 around it:
+    ``PoissonProblem(unit_square_tri(256), degree=2).solve(backend="matfree",
+    condensed=True)``, then on the main path's problem (n = 64) CG with
+    ``precond="ebe"`` on the matrix-free ``coords`` store (B1 once, in the
+    EbE build; B2 once per operator apply and per EbE apply) and with
+    ``precond="chebyshev"`` on ``ell`` (B3 per iteration, B4 once), each
+    also counted by a profiler trace.  Then: the condensed solve against
+    the uncondensed ``matfree`` and ``ell`` solves (fewer outer iterations;
+    at a tight inner tolerance u within 1e-8·max|u| of ``ell``'s and the
+    interior residual rows of a loose outer solve ≤ 1e-9·‖f‖∞); the n = 64
+    condensed solve and the n = 32 anisotropic counts against the JAX
+    package's pins; jacobi, ebe and chebyshev on anisotropic P1 at
+    unit_square_tri(512); ∂/∂ρ of Σu² through ``condensed_solve`` against
+    ``sparse_solve`` (1e-8 relative); B2 on the scaffold's compact tables
+    bit for bit against the ordered plain sum; CUDA-event times of
+    ``factorize``, ``ElementFactors.solve``, one EbE and one Chebyshev
+    apply, one Schur apply.  Gates are read after the phase's line is
+    out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import (SolverSpec, assemble, assemble_rhs, condense, condensed_solve,
+                                  factorize, make_preconditioner, masked_element_matrices,
+                                  matfree_operator, matfree_solve, sparse_solve, unit_cube_tet,
+                                  unit_square_tri, vertex_split, weakform as wf)
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.kernels import seg_reduce
+
+    gates, walls, times = [], {}, {}
+    t_phase = time.perf_counter()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    def since(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    if prob is None:
+        prob = PoissonProblem(unit_cube_tet(MAIN_N), device="cuda")
+    p2, walls["setup_p2_s"] = timed(
+        lambda: PoissonProblem(unit_square_tri(ELEMALG_COND_N), degree=2, device="cuda"))
+    cg12 = SolverSpec(method="cg", tol=1e-12, atol=1e-12)
+    tight = SolverSpec(method="cg", tol=ELEMALG_TIGHT_INNER, atol=ELEMALG_TIGHT_INNER,
+                       maxiter=2000)  # the default inner spec's, at a tighter tolerance
+    ebe_spec = SolverSpec(method="cg", precond="ebe")
+    cheb_spec = SolverSpec(method="cg", precond="chebyshev")
+
+    # -- the path ----------------------------------------------------------
+    kernels.reset_launches()
+    (cond, cond_info), walls["condensed_first_s"] = timed(
+        lambda: p2.solve(backend="matfree", condensed=True, spec=cg12, return_info=True))
+    cond_launches = dict(kernels.LAUNCHES)
+    main = {}
+    for name, call in (
+            ("ebe", lambda: prob.solve(f=1.0, backend="matfree", store="coords", spec=ebe_spec)),
+            ("chebyshev", lambda: prob.solve(f=1.0, spec=cheb_spec))):
+        before = dict(kernels.LAUNCHES)
+        with profile(activities=acts) as prof:
+            _open_trace()
+            res, first_s = timed(call)
+        main[name] = {"res": res, "first_s": first_s, "launches": since(before),
+                      "kernel_calls": _kernel_calls(prof),
+                      "lost_records": len(_lost_records(prof))}
+    launches = dict(kernels.LAUNCHES)
+    for kname in MAIN_KERNELS:
+        gate(launches[kname] > 0, f"elemalg path: kernel {kname} never launched")
+
+    # -- static condensation at n = 256 -----------------------------------
+    _, walls["condensed_warm_s"] = timed(
+        lambda: p2.solve(backend="matfree", condensed=True, spec=cg12))
+    full, walls["matfree_first_s"] = timed(lambda: p2.solve(backend="matfree", spec=cg12))
+    _, walls["matfree_warm_s"] = timed(lambda: p2.solve(backend="matfree", spec=cg12))
+    ell, walls["ell_first_s"] = timed(lambda: p2.solve(spec=cg12))
+    _, walls["ell_warm_s"] = timed(lambda: p2.solve(spec=cg12))
+    plan, bc = p2.plan, p2.bc
+    op = matfree_operator(plan, wf.diffusion(None)).condensed(bc)
+    f = bc.project_residual(assemble_rhs(plan, wf.source(1.0)))
+    split = vertex_split(p2.space)
+    (u_t, info_t), walls["condensed_tight_s"] = timed(
+        lambda: condensed_solve(op, f, cg12, split=split, inner_spec=tight, return_info=True))
+    loose = SolverSpec(method="cg", tol=1e-3, atol=1e-3)
+    interior = torch.as_tensor(~split.interface_mask, device="cuda") & (bc.free_mask > 0)
+    f_inf = float(f.abs().max())
+    loose_rows = {}
+    for label, inner in (("default_inner", None), ("tight_inner", tight)):
+        u_l, info_l = condensed_solve(op, f, loose, split=split, inner_spec=inner,
+                                      return_info=True)
+        loose_rows[label] = {"outer_iters": info_l.iters, "interior_residual_max": float(
+            ((op.matvec(u_l) - f) * interior).abs().max())}
+    system = condense(op, split)
+    xb = torch.as_tensor(np.random.default_rng(22).standard_normal(system.shape[0]),
+                         device="cuda")
+    inner_iters = system.ii_solve(system.kib_matvec(xb))[1].iters
+    times["schur_apply_ms"] = time_ms(lambda: system.matvec(xb))
+    condensation = {
+        "n": ELEMALG_COND_N, "dofs": p2.space.num_dofs, "elements": p2.mesh.num_cells,
+        "interface": system.shape[0], "interior": system.sc.ni,
+        "outer_iters": cond.iters, "matfree_iters": full.iters, "ell_iters": ell.iters,
+        "converged": cond.converged, "residual": cond.residual, "max_u": float(cond.u.max()),
+        "rel_diff_vs_ell": rel(cond.u, ell.u), "matfree_rel_diff_vs_ell": rel(full.u, ell.u),
+        "tight_inner": {"tol": ELEMALG_TIGHT_INNER, "outer_iters": info_t.iters,
+                        "rel_diff_vs_ell": rel(u_t, ell.u)},
+        "loose_outer": {"f_inf": f_inf, **loose_rows},
+        "schur_apply_inner_iters": inner_iters, "launches_first_solve": cond_launches}
+    gate(cond.converged and info_t.converged, f"elemalg: condensed solves {condensation}")
+    gate(cond.iters < full.iters and info_t.iters < full.iters,
+         f"elemalg: outer iterations {cond.iters}, {info_t.iters} not below the "
+         f"uncondensed {full.iters}")
+    gate(condensation["tight_inner"]["rel_diff_vs_ell"] <= 1e-8,
+         f"elemalg: condensed u against ell's {condensation['tight_inner']}")
+    gate(loose_rows["tight_inner"]["interior_residual_max"] <= 1e-9 * f_inf,
+         f"elemalg: interior rows of a loose condensed solve {loose_rows} (‖f‖∞ {f_inf})")
+
+    # B2 on the scaffold's compact tables, against the ordered plain sum
+    ordered = ordered_reduce_ref()
+    rng = np.random.default_rng(23)
+    compact = {}
+    for label, table in (("interface", system.sc.reduce_b), ("interior", system.sc.reduce_i)):
+        src = torch.as_tensor(rng.standard_normal(table.n_src), device="cuda")
+        got, want = seg_reduce(src, table), ordered(src, table.slots, table.ptr)
+        compact[label] = {"rows": table.n_rows, "src": table.n_src, "bit_equal": bool(
+            torch.equal(got, want)), "max_abs_err": max_err(got, want)[0],
+            "ms": time_ms(lambda: seg_reduce(src, table))}
+        gate(compact[label]["bit_equal"], f"elemalg: B2 on the {label} table {compact[label]}")
+
+    # -- the JAX package's pins -------------------------------------------
+    pins = JAX_ELEMALG
+    p64 = PoissonProblem(unit_square_tri(pins["condensed_n"]), degree=2, device="cuda")
+    r64 = p64.solve(backend="matfree", condensed=True, spec=cg12)
+    pin_rows = {"condensed": {"iters": r64.iters, "max_u": float(r64.u.max())}}
+    gate(abs(r64.iters - pins["condensed_iters"]) <= 1
+         and abs(float(r64.u.max()) - pins["condensed_max_u"]) <= 1e-10,
+         f"elemalg: condensed solve at n = {pins['condensed_n']} {pin_rows} against the JAX "
+         f"package's {pins['condensed_iters']}, {pins['condensed_max_u']}")
+    op32, f32 = _aniso_problem(pins["precond_n"])
+    for name, want in pins["precond_iters"].items():
+        _, info = matfree_solve(op32, f32, SolverSpec(method="cg", tol=1e-10, atol=1e-10,
+                                                      maxiter=10000, precond=name),
+                                return_info=True)
+        pin_rows[f"aniso_{name}"] = info.iters
+        gate(abs(info.iters - want) <= 1,
+             f"elemalg: {name} on anisotropic P1 at n = {pins['precond_n']}: {info.iters} "
+             f"iterations against the JAX package's {want}")
+
+    # -- ∂/∂ρ of Σu² through condensed_solve against sparse_solve ----------
+    rho = torch.as_tensor(np.random.default_rng(24).uniform(0.5, 2.0, p64.plan.num_cells),
+                          device="cuda")
+    f64 = p64.bc.project_residual(assemble_rhs(p64.plan, wf.source(1.0)))
+    r1 = rho.clone().requires_grad_(True)
+    k64 = p64.bc.apply_matrix_only(assemble(p64.plan, wf.diffusion(r1)))
+    (g_ref,), walls["grad_sparse_solve_s"] = timed(
+        lambda: torch.autograd.grad((sparse_solve(k64, f64, cg12) ** 2).sum(), r1))
+    r2 = rho.clone().requires_grad_(True)
+    op64 = matfree_operator(p64.plan, wf.diffusion(r2)).condensed(p64.bc)
+    (g_cond,), walls["grad_condensed_s"] = timed(lambda: torch.autograd.grad(
+        (condensed_solve(op64, f64, cg12, space=p64.space, inner_spec=tight) ** 2).sum(), r2))
+    gradient = {"n": pins["condensed_n"], "rel_diff_vs_sparse_solve": rel(g_cond, g_ref)}
+    gate(gradient["rel_diff_vs_sparse_solve"] <= 1e-8, f"elemalg: ∂/∂ρ {gradient}")
+
+    # -- preconditioners on anisotropic P1 at n = 512 ----------------------
+    (op_a, f_a), walls["setup_aniso_s"] = timed(lambda: _aniso_problem(ELEMALG_PRECOND_N))
+    aniso, sols = {"n": ELEMALG_PRECOND_N, "dofs": op_a.shape[0]}, {}
+    for name in ("jacobi", "ebe", "chebyshev"):
+        (u, info), wall = timed(lambda n=name: matfree_solve(
+            op_a, f_a, SolverSpec(method="cg", tol=1e-10, atol=1e-10, maxiter=20000, precond=n),
+            return_info=True))
+        sols[name] = u
+        aniso[name] = {"iters": info.iters, "converged": info.converged, "wall_s": wall,
+                       "rel_diff_vs_jacobi": rel(u, sols["jacobi"])}
+        gate(info.converged and aniso[name]["rel_diff_vs_jacobi"] <= 1e-8,
+             f"elemalg: {name} on anisotropic P1 {aniso[name]}")
+    for name in ("ebe", "chebyshev"):
+        gate(aniso[name]["iters"] < aniso["jacobi"]["iters"],
+             f"elemalg: {name} does not beat jacobi on anisotropic P1 {aniso}")
+    x_a = torch.as_tensor(np.random.default_rng(25).standard_normal(op_a.shape[0]), device="cuda")
+    for name in ("ebe", "chebyshev"):
+        m = make_preconditioner(op_a, name)
+        times[f"aniso_{name}_apply_ms"] = time_ms(lambda: m(x_a))
+
+    # -- the main path's gates and times ------------------------------------
+    ref = prob.solve(f=1.0)
+    main_rows = {}
+    for name, row in main.items():
+        res = row.pop("res")
+        _, row["warm_s"] = timed(
+            lambda: prob.solve(f=1.0, backend="matfree", store="coords", spec=ebe_spec)
+            if name == "ebe" else prob.solve(f=1.0, spec=cheb_spec))
+        row.update({"iters": res.iters, "converged": res.converged, "max_u": float(res.u.max()),
+                    "max_abs_diff_vs_jacobi_ell": float((res.u - ref.u).abs().max())})
+        main_rows[name] = row
+        gate(res.converged and row["max_abs_diff_vs_jacobi_ell"] <= 1e-8
+             and 0.0555 <= row["max_u"] <= 0.0565 and res.iters < ref.iters,
+             f"elemalg: {name} on the main path {row} (jacobi on ell: {ref.iters} iterations)")
+    it_e, it_c = main_rows["ebe"]["iters"], main_rows["chebyshev"]["iters"]
+    want = {"ebe": ({"local_stiffness_p1": 1, "seg_reduce": 2 * it_e + 5, "spmv_ell": 0,
+                     "galerkin_residual_ell": 0},
+                    {"local_stiffness_p1": 1, "seg_reduce": 2 * it_e + 5,
+                     "spmv_ell/residual (tiles)": 0}),
+            "chebyshev": ({"local_stiffness_p1": 1, "seg_reduce": 2, "spmv_ell": it_c + 1,
+                           "galerkin_residual_ell": 1},
+                          {"local_stiffness_p1": 1, "seg_reduce": 2,
+                           "spmv_ell/residual (tiles)": it_c + 2})}
+    for name, (by_wrapper, by_trace) in want.items():
+        row = main_rows[name]
+        for label, got, expect in (("wrappers", row["launches"], by_wrapper),
+                                   ("profiler", row["kernel_calls"], by_trace)):
+            gate(all(got[k] == v for k, v in expect.items()),
+                 f"elemalg: {name} on the main path launched {got} ({label}), not {expect}; "
+                 f"the trace lost {row['lost_records']} kernel records")
+    mf = matfree_operator(prob.plan, wf.diffusion(None), store="coords").condensed(prob.bc)
+    k_e = masked_element_matrices(mf)
+    c_e = k_e + 0.25 * torch.eye(k_e.shape[-1], dtype=k_e.dtype, device="cuda")
+    fac = factorize(c_e, spd=True)
+    xe = torch.as_tensor(np.random.default_rng(26).standard_normal(tuple(c_e.shape[:2])),
+                         device="cuda")
+    x = torch.as_tensor(np.random.default_rng(27).standard_normal(mf.shape[0]), device="cuda")
+    m_ebe = make_preconditioner(mf, "ebe")
+    k_main, _ = prob.assemble(f=1.0)
+    m_cheb = make_preconditioner(k_main, "chebyshev")
+    times.update({
+        "factorize_ms": time_ms(lambda: factorize(c_e, spd=True)),
+        "factor_solve_ms": time_ms(lambda: fac.solve(xe)),
+        "ebe_build_ms": time_ms(lambda: make_preconditioner(mf, "ebe")),
+        "ebe_apply_ms": time_ms(lambda: m_ebe(x)),
+        "chebyshev_build_ms": time_ms(lambda: make_preconditioner(k_main, "chebyshev")),
+        "chebyshev_apply_ms": time_ms(lambda: m_cheb(x)),
+        "main_shapes": {"factors": list(c_e.shape), "csr_nnz": k_main.nnz}})
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out = {"phase": "elemalg", "condensation": condensation, "compact_b2": compact,
+           "pins": pin_rows, "gradient": gradient, "aniso": aniso, "main_path": main_rows,
+           "times_ms": times, "walls_s": walls, "launches": launches,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
 TRACE_OPENINGS = ("none", "one_kernel", "sleep", "pad")
 TRACE_REPEATS = {"local": 8, "context": 3, "coords": 2}
 
@@ -2878,7 +3179,8 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "trace_drops", "quickstart", "kernels_offsets64")
+               "matfree", "opt", "pils", "elemalg", "trace_drops", "quickstart",
+               "kernels_offsets64")
 
 
 def main(argv=None) -> int:
@@ -2935,6 +3237,7 @@ def main(argv=None) -> int:
     matfree = phase_matfree(prob)
     opt = phase_opt()
     pils = phase_pils()
+    elemalg = phase_elemalg(prob)
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -2947,7 +3250,7 @@ def main(argv=None) -> int:
     # and on this slice's paths, each counted from 0 around its own run
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
-             "opt": opt["launches"], "pils": pils["launches"]}
+             "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -2991,6 +3294,7 @@ def run_only(only) -> int:
               "matfree": lambda: phase_matfree(None),
               "opt": phase_opt,
               "pils": phase_pils,
+              "elemalg": lambda: phase_elemalg(None),
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

@@ -64,6 +64,20 @@ from .solvers import (  # noqa: F401
     sparse_solve,
     sparse_solve_batched,
 )
+from .elemalg import (  # noqa: F401
+    CondensedSystem,
+    DofSplit,
+    ElementFactors,
+    block_partition,
+    chebyshev_preconditioner,
+    condense,
+    condensed_solve,
+    dof_split,
+    ebe_preconditioner,
+    factorize,
+    masked_element_matrices,
+    vertex_split,
+)
 from .sparse import (  # noqa: F401
     CSR,
     ELL,

@@ -10,7 +10,9 @@ The torch port of ``repro.core.solvers``:
   precond)`` as one frozen value; :func:`resolve_solver_spec` folds the
   legacy per-kwarg form into one (with a ``DeprecationWarning``).
 * the preconditioner registry (:func:`register_preconditioner`) with
-  ``identity``/``none`` and ``jacobi``.
+  ``identity``/``none`` and ``jacobi``; ``ebe`` and ``chebyshev`` register
+  from :mod:`repro_torch.core.elemalg`, which :func:`make_preconditioner`
+  imports at their first lookup.
 * :func:`sparse_solve` — a ``torch.autograd.Function``: the backward pass
   solves the adjoint system ``Kᵀλ = ḡ`` with the same solver and returns
   the **sparse** cotangent ``∂/∂vals = −λ[rows]·x[cols]`` and ``∂/∂b = λ``.
@@ -170,6 +172,9 @@ def make_preconditioner(op, precond="jacobi") -> Callable:
     if callable(precond):
         return precond(op)
     factory = _PRECONDITIONERS.get(precond)
+    if factory is None and precond in ("ebe", "chebyshev"):
+        from . import elemalg  # noqa: F401  (registers ebe/chebyshev)
+        factory = _PRECONDITIONERS.get(precond)
     if factory is None:
         raise KeyError(
             f"unknown preconditioner {precond!r}; registered: "

@@ -34,6 +34,7 @@ from ..core import (
     assemble_batched,
     assemble_rhs,
     assemble_rhs_batched,
+    condense,
     forms,
     make_matvec,
     make_preconditioner,
@@ -41,6 +42,7 @@ from ..core import (
     matfree_operator,
     resolve_solver_spec,
     sparse_solve_batched,
+    vertex_split,
     weakform as wf,
 )
 from ..core.mesh import Mesh, element_for_mesh
@@ -88,23 +90,30 @@ class _ProblemBase:
             default=SolverSpec(method=self.method),
             where=f"{type(self).__name__}.{where}")
 
-    def _solve_system(self, k, f, spec: SolverSpec, backend=None, return_info=False):
+    def _solve_system(self, k, f, spec: SolverSpec, backend=None, return_info=False,
+                      condensed=False):
         """Krylov solve on an operator (assembled, or matrix-free on the
         ``matfree`` backend) with the inner matvec from the registry
-        (:mod:`repro_torch.core.matvec`).  A ``maxiter`` exit
-        is reported through :func:`repro_torch.telemetry.check_convergence`
-        and the ``converged`` flag; the relative residual is computed with
-        the backend's fused residual."""
+        (:mod:`repro_torch.core.matvec`); with ``condensed`` (a matrix-free
+        operator on a P2 space) the Krylov iteration runs on the interface
+        Schur complement of :func:`~repro_torch.core.condense`.  A
+        ``maxiter`` exit is reported through
+        :func:`repro_torch.telemetry.check_convergence` and the
+        ``converged`` flag; the relative residual is computed with the
+        backend's fused residual."""
         be = backend or self.backend
         t0 = time.perf_counter()
-        u, info = _method(spec.method)(
-            make_matvec(k, be), f, m=make_preconditioner(k, spec.precond),
-            tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter)
+        if condensed:
+            u, info = condense(k, vertex_split(self.space)).solve(f, spec)
+        else:
+            u, info = _method(spec.method)(
+                make_matvec(k, be), f, m=make_preconditioner(k, spec.precond),
+                tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter)
         where = f"{type(self).__name__}.solve"
         events.check_convergence(info, where=where)
         if telemetry.is_enabled():
             events.record_solve(where, info, method=spec.method, backend=be,
-                                precond=spec.precond_name,
+                                precond="condensed" if condensed else spec.precond_name,
                                 wall_us=(time.perf_counter() - t0) * 1e6)
         r = make_residual(k, be)(u, f)
         rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(f))
@@ -118,19 +127,17 @@ class _ProblemBase:
         its memory/speed point), Jacobi from a diagonal-only assembly,
         Dirichlet condensation as an apply wrapper; the right-hand-side lift
         runs one apply of the uncondensed operator.  No global values are
-        formed.  (For a differentiable solve use
-        :func:`~repro_torch.core.matfree_solve` on the same operator.)"""
-        if condensed:
-            raise NotImplementedError(
-                "condensed=True (static condensation of the higher-order dofs) is not "
-                "ported yet: it comes with the element tensor algebra (ROADMAP queue A11)")
+        formed.  ``condensed=True`` statically condenses the edge DoFs of a
+        P2 space and iterates on the vertex Schur complement.  (For a
+        differentiable solve use :func:`~repro_torch.core.matfree_solve` or
+        :func:`~repro_torch.core.condensed_solve` on the same operator.)"""
         op_full = matfree_operator(self.plan, form, store=store)
         if isinstance(dirichlet_values, (int, float)) and dirichlet_values == 0.0:
             f = self.bc.project_residual(load)  # homogeneous: the lift is a mask
         else:
             f = self.bc.lift(op_full, load, dirichlet_values)
         return self._solve_system(op_full.condensed(self.bc), f, spec, backend="matfree",
-                                  return_info=return_info)
+                                  return_info=return_info, condensed=condensed)
 
 
 class PoissonProblem(_ProblemBase):
@@ -151,7 +158,9 @@ class PoissonProblem(_ProblemBase):
         (default, broadcast-plan kernels), ``"ell_stream"`` (streaming
         kernels), ``"csr"``, or ``"matfree"`` (no matrix assembly: only the
         load is assembled, and ``store`` picks the matrix-free operator's
-        store).  ``return_info=True`` appends the raw
+        store).  ``condensed=True`` (``matfree``, P2) runs the Krylov
+        iteration on the statically condensed interface system.
+        ``return_info=True`` appends the raw
         :class:`~repro_torch.core.SolveInfo`."""
         spec = self._spec(spec, tol, maxiter, "solve")
         if backend == "matfree":

@@ -307,11 +307,16 @@ def test_problem_matfree_matches_jax(name, store):
 
 
 def test_problem_matfree_equals_assembled_and_condensed_raises():
+    """The matrix-free solve equals the assembled one; so does the
+    statically condensed solve on a P2 mesh (``condensed=True``); the
+    sharded backend still raises naming A16."""
     prob = ttm.PoissonProblem(tc.unit_cube_tet(3), device="cpu")
     mf = prob.solve(backend="matfree")
     torch.testing.assert_close(mf.u, prob.solve(backend="csr").u, atol=1e-10, rtol=0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        prob.solve(backend="matfree", condensed=True)
+    p2 = ttm.PoissonProblem(tc.unit_square_tri(6), degree=2, device="cpu")
+    spec = tc.SolverSpec(**SPEC)
+    cond = p2.solve(backend="matfree", condensed=True, spec=spec)
+    torch.testing.assert_close(cond.u, p2.solve(backend="csr", spec=spec).u, atol=1e-10, rtol=0)
     with pytest.raises(NotImplementedError, match="A16"):
         prob.solve(backend="matfree_sharded")
 

@@ -88,8 +88,10 @@ def test_preconditioner_registry():
     d = k.diagonal()
     assert torch.allclose(tc.make_preconditioner(k, "jacobi")(x), 1.0 / d)
     assert tc.cached_diagonal(k) is tc.cached_diagonal(k)
+    cheb = tc.make_preconditioner(k, "chebyshev")  # registered by elemalg, looked up lazily
+    assert cheb(x).shape == x.shape and torch.isfinite(cheb(x)).all()
     with pytest.raises(KeyError, match="registered"):
-        tc.make_preconditioner(k, "chebyshev")
+        tc.make_preconditioner(k, "does-not-exist")
     tc.register_preconditioner("half_test", lambda op: (lambda v: 0.5 * v), overwrite=True)
     assert torch.equal(tc.make_preconditioner(k, "half_test")(x), 0.5 * x)
     with pytest.raises(ValueError):
