@@ -127,9 +127,23 @@ Phases, one JSON line each:
    path (u within 1e-8 of Jacobi's, fewer iterations; B1–B4 counted by
    the wrappers and a profiler trace); times of ``factorize``,
    ``ElementFactors.solve``, an EbE, a Chebyshev and a Schur apply;
-19. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+19. serve — the solve service (``repro_torch.serve``) and its telemetry
+   on ``csr`` and then ``matfree``: ``poisson_requests(resolution=256)``
+   (66,049 DoFs), ``warmup`` of the buckets 1-16, two open-loop waves of
+   16 requests at 2,000 requests/s through the worker thread, telemetry
+   on; every response ok, no entry built after warmup, B1 and B2 at the
+   path's shapes against their plain versions (the ``csr`` entry's batched
+   K at bucket 16, one matrix-free apply's B2 on the 66,049-row vector
+   table), wave 0 against
+   sequential solves (1e-12·max|u|, equal iterations), one B1 and one B2 a
+   ``csr`` group and B2 once an apply on ``matfree`` (the wrappers and a
+   profiler trace of one dispatch, with its idle share), the span segments
+   summing to e2e, a ``telemetry.capture`` naming the kernels, the JAX
+   package's numbers at resolution 6, and ``python -m
+   repro_torch.launch.serve --smoke`` in a subprocess;
+20. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-20. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+21. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -151,7 +165,7 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``opt``, ``pils``, ``elemalg``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
+``opt``, ``pils``, ``elemalg``, ``serve``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
 (after other phases: ``--only mixed_bc,elasticity,batched,trace_drops``).
@@ -163,6 +177,7 @@ line, never with the full run's ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import re
@@ -3060,6 +3075,394 @@ def phase_elemalg(prob):
     return out
 
 
+# -- the solve service (A15) and its telemetry (A14) -------------------------
+
+SERVE_N, SERVE_WAVE, SERVE_RATE = 256, 16, 2000.0
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+# The JAX package's answers to serve.poisson_requests(n_requests=5,
+# resolution=6, seed=0) through SolveService(window=0.0).drain() (the 5
+# requests padded to bucket 8), measured on the CPU: backend -> (CG
+# iterations, max u) per request.
+JAX_SERVE = {"resolution": 6, "n_requests": 5,
+             "csr": [(20, 0.059834374025217366), (20, 0.05432883977321751),
+                     (20, 0.05848283813927447), (20, 0.055598318700446375),
+                     (20, 0.061079398355430525)],
+             "matfree": [(20, 0.059834374025217386), (20, 0.054328839773217515),
+                         (20, 0.05848283813927447), (20, 0.05559831870044639),
+                         (20, 0.06107939835543051)]}
+
+
+class _Recorder:
+    """The service as ``open_loop_load`` drives it (``submit`` and
+    ``cache``), keeping every submitted request's future."""
+
+    def __init__(self, svc):
+        self.svc, self.cache, self.pendings = svc, svc.cache, []
+
+    def submit(self, req):
+        pending = self.svc.submit(req)
+        self.pendings.append(pending)
+        return pending
+
+
+def _hist_count(name: str, backend: str) -> int:
+    from repro_torch import telemetry
+
+    s = telemetry.snapshot()["histograms"].get(f"{name}{{backend={backend}}}")
+    return 0 if s is None else s["count"]
+
+
+def _chrome_kernels(events) -> dict:
+    """From a Chrome trace's events (``telemetry.capture``): the launches of
+    B1 and B2 by kernel name, the device busy ms of every kernel but
+    ``_open_trace``'s pad, the top kernels, and the launch calls with no
+    kernel record (paired by correlation id)."""
+    kern = [ev for ev in events if ev.get("cat") == "kernel"]
+    seen = {ev.get("args", {}).get("correlation") for ev in kern}
+    lost = sum(1 for ev in events if ev.get("cat") == "cuda_runtime"
+               and re.match(r"cu(da)?LaunchKernel", ev.get("name", ""))
+               and ev.get("args", {}).get("correlation") not in seen)
+    by_name: dict = {}
+    for ev in kern:
+        if "spin_kernel" not in ev["name"]:
+            n, us = by_name.get(ev["name"], (0, 0.0))
+            by_name[ev["name"]] = (n + 1, us + ev.get("dur", 0.0))
+    calls = {label: sum(n for name, (n, _) in by_name.items() if re.search(rf"\b{key}\b", name))
+             for key, label in (("p1_stiffness_kernel", "local_stiffness_p1"),
+                                ("seg_reduce_kernel", "seg_reduce"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"calls": calls, "lost": lost,
+            "busy_ms": sum(us for _, us in by_name.values()) / 1e3,
+            "top": [{"kernel": name[:70], "device_ms": us / 1e3, "calls": n}
+                    for name, (n, us) in top]}
+
+
+def _serve_b2_per_solve(iters: int) -> int:
+    """B2 launches of one matrix-free Jacobi-CG solve: the diagonal, the
+    initial residual's apply and one apply an iteration."""
+    return iters + 2
+
+
+def _serve_kernels(csr_reqs, mf_reqs, groups, n_waves) -> dict:
+    """B1 and B2 at the serve path's shapes against their plain versions,
+    and what the padded bucket costs a ``csr`` group.  (1) The ``csr``
+    entry's system (``serve.cache.csr_system``) on the wave's 16 stacked
+    leaves: B1 at (16, 131,072) against ``local_stiffness_p1_ref`` and the
+    Dirichlet-applied batched K (one batched B1 and one batched B2 onto
+    (16, nnz)) against ``bc.apply_matrix_only`` of the plain B1 and B2, at
+    1e-12 of scale.  (2) One matrix-free apply's B2 (a ``matfree`` entry's
+    family member, ``context`` store): its element vectors reduced onto
+    ``plan.vec_reduce`` (66,049 rows) against ``seg_reduce_ref``, and the
+    whole apply against the plain pipeline, at 1e-12 of scale.  (3) The
+    ``csr`` system's device time at each padded bucket and at each real
+    group size ``b`` of the waves (``groups``: ``{b: count}``), so the
+    padding's cost a group is ``t(pad_bucket(b)) − t(b)``."""
+    from repro_torch import kernels
+    from repro_torch.core import matfree_family
+    from repro_torch.kernels.ref import local_stiffness_p1_ref, seg_reduce_ref
+    from repro_torch.serve import pad_bucket
+    from repro_torch.serve.cache import csr_system
+    from repro_torch.serve.service import _stack_padded
+
+    def stacked(reqs, padded):
+        return tuple(_stack_padded([r.leaves[j] for r in reqs], padded, reqs[0].plan.device)
+                     for j in range(len(reqs[0].leaves)))
+
+    req = csr_reqs[0]
+    plan, bc, form = req.plan, req.bc, req.form
+    leaves = stacked(csr_reqs, SERVE_WAVE)
+    rho_b = (leaves[0] * leaves[1][:, None]).contiguous()
+    table = plan.mat_reduce
+    b1_err, b1_scale = max_err(kernels.local_stiffness_p1(plan.coords, rho_b),
+                               local_stiffness_p1_ref(plan.coords, rho_b))
+    k_err, k_scale = max_err(csr_system(plan, form, bc, leaves).vals, bc.apply_matrix_only(
+        plan.batched_csr(seg_reduce_ref(local_stiffness_p1_ref(plan.coords, rho_b), table.rows,
+                                        table.n_rows, batch=True))).vals)
+
+    mreq = mf_reqs[0]
+    op = matfree_family(mreq.plan, mreq.form, leaves_batch=stacked(mf_reqs, SERVE_WAVE)
+                        ).condensed(mreq.bc)[0]
+    vec = mreq.plan.vec_reduce
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(mreq.plan.num_dofs),
+                        device=mreq.plan.device)
+    m = op.free_mask.to(x.dtype)
+    y_local = op._local_apply((m * x)[mreq.plan.cell_dofs], False)
+    y_plain = seg_reduce_ref(y_local, vec.rows, vec.n_rows)
+    b2_err, b2_scale = max_err(kernels.seg_reduce(y_local, vec), y_plain)
+    apply_err, apply_scale = max_err(op.matvec(x), m * y_plain + (1.0 - m) * x)
+
+    sizes = sorted(set(SERVE_BUCKETS) | set(groups))
+    by_size = {b: stacked(csr_reqs[:b], b) for b in sizes}
+    ms = {b: time_ms(lambda b=b: csr_system(plan, form, bc, by_size[b])) for b in sizes}
+    pad = {b: {"groups": n, "padded": min(pad_bucket(b), SERVE_WAVE),
+               "pad_ms": ms[min(pad_bucket(b), SERVE_WAVE)] - ms[b]}
+           for b, n in sorted(groups.items())}
+    return {"b1_batched": {"shape": list(rho_b.shape), "max_abs_err": b1_err, "scale": b1_scale},
+            "k_batched": {"shape": [SERVE_WAVE, table.n_rows], "max_abs_err": k_err,
+                          "scale": k_scale},
+            "b2_vector": {"rows": vec.n_rows, "src": list(y_local.shape), "max_abs_err": b2_err,
+                          "scale": b2_scale},
+            "matfree_apply": {"max_abs_err": apply_err, "scale": apply_scale},
+            "csr_system_ms": ms, "padding_by_group_size": pad,
+            "padding_ms_per_wave": sum(v["groups"] * v["pad_ms"] for v in pad.values())
+            / n_waves,
+            "element_matrix_bytes_per_row": plan.num_cells * 9 * 8}
+
+
+def phase_serve():
+    """The solve service (A15) and the telemetry it reports through (A14).
+    The path, counted from 0 around it: for ``csr`` and then ``matfree``,
+    ``SolveService(window=0.002, max_batch=16)`` on
+    ``poisson_requests(resolution=256)`` (66,049 DoFs, 131,072 triangles,
+    CG + Jacobi at 1e-10), ``warmup`` pinning the buckets 1-16, then 2
+    waves of 16 requests (seeds 0 and 1) under the started worker through
+    ``open_loop_load`` at 2,000 requests/s, telemetry on and the flight
+    recorder writing to a temporary directory.  Then the gates, read after
+    the phase's line is out: every response ``ok``; no entry built and no
+    cache miss after warmup; B1 and B2 at the path's shapes against their
+    plain versions at 1e-12 of scale (``_serve_kernels``: the ``csr``
+    entry's batched K at bucket 16, one matrix-free apply's B2 on the
+    66,049-row vector table), with the padded bucket's cost a ``csr``
+    group; wave 0's answers within 1e-12·max|u| of a
+    sequential ``sparse_solve`` / ``matfree_solve`` with equal iterations;
+    one B1 and one B2 a ``csr`` group and B2 once an apply on ``matfree``
+    (the wrappers' counts); the four span segments summing to e2e within
+    5 %; a dispatch under ``telemetry.capture`` whose trace names B1 and B2
+    and counts them as the wrappers do (and gives its idle share); the
+    reference size (``resolution=6``, 5
+    requests padded to 8) against the JAX package's pins; and
+    ``python -m repro_torch.launch.serve --smoke`` in a subprocess."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels, serve, telemetry
+    from repro_torch.core import assemble, matfree_operator, matfree_solve, sparse_solve
+    from repro_torch.telemetry import spans
+
+    gates, walls = [], {}
+    t_phase = time.perf_counter()
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    def since(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    tmp = tempfile.mkdtemp(prefix="serve_phase_")
+    telemetry.reset()
+    telemetry.enable()
+    telemetry.configure_flight(path=os.path.join(tmp, "flight.jsonl"))
+    try:
+        # -- the path: both backends, warmup and two waves each -------------
+        kernels.reset_launches()
+        runs = {}
+        for backend in ("csr", "matfree"):
+            telemetry.reset()  # each backend's histograms, gauges and counters apart
+            (waves, walls[f"{backend}_requests_s"]) = timed(lambda: [serve.poisson_requests(
+                n_requests=SERVE_WAVE, resolution=SERVE_N, backend=backend, seed=seed,
+                device="cuda") for seed in (0, 1)])
+            svc = serve.SolveService(window=0.002, max_batch=SERVE_WAVE)
+            _, walls[f"{backend}_warmup_s"] = timed(
+                lambda: svc.warmup(waves[0][0], batch_sizes=SERVE_BUCKETS))
+            warm_snap = telemetry.snapshot()
+            traces0 = telemetry.jit_trace_total("serve")
+            hits0, misses0 = svc.cache.hits, svc.cache.misses
+            rows = []
+            t0 = time.perf_counter()
+            with svc:
+                for seed, reqs in enumerate(waves):
+                    rec = _Recorder(svc)
+                    before, groups0 = dict(kernels.LAUNCHES), _hist_count(
+                        "serve_batch_size", backend)
+                    report = serve.open_loop_load(rec, reqs, rate=SERVE_RATE, seed=seed)
+                    rows.append({"report": report, "launches": since(before),
+                                 "groups": _hist_count("serve_batch_size", backend) - groups0,
+                                 "responses": [p.response() for p in rec.pendings]})
+            walls[f"{backend}_waves_s"] = time.perf_counter() - t0
+            runs[backend] = {"svc": svc, "waves": waves, "rows": rows, "snap": telemetry.snapshot(),
+                             "warm_snap": warm_snap,
+                             "built_after_warmup": telemetry.jit_trace_total("serve") - traces0,
+                             "misses_after_warmup": svc.cache.misses - misses0,
+                             "hits_after_warmup": svc.cache.hits - hits0}
+        launches = dict(kernels.LAUNCHES)
+        for kname in ("local_stiffness_p1", "seg_reduce"):
+            gate(launches[kname] > 0, f"serve path: kernel {kname} never launched")
+
+        # -- B1 and B2 at the path's shapes against their plain versions ------
+        t0 = time.perf_counter()
+        sizes = collections.Counter(r.batch_size for row in runs["csr"]["rows"]
+                                    for r in row["responses"])
+        plain = _serve_kernels(runs["csr"]["waves"][0], runs["matfree"]["waves"][0],
+                               {b: n // b for b, n in sizes.items()}, len(runs["csr"]["rows"]))
+        for name in ("b1_batched", "k_batched", "b2_vector", "matfree_apply"):
+            gate(plain[name]["max_abs_err"] <= TOL[torch.float64] * plain[name]["scale"],
+                 f"serve: {name} against its plain version {plain[name]}")
+        walls["plain_checks_s"] = time.perf_counter() - t0
+
+        # -- per backend: readings and gates ---------------------------------
+        results = {}
+        for backend, run in runs.items():
+            svc, snap, rows = run["svc"], run["snap"], run["rows"]
+            resps = [r for row in rows for r in row["responses"]]
+            hist = snap["histograms"]
+            e2e = hist.get(f"serve_e2e_us{{backend={backend}}}", {})
+            qw = hist.get(f"serve_queue_wait_us{{backend={backend}}}", {})
+            seg = [r.span_segments_us for r in resps]
+            solve_us = [s.get("solve", math.nan) for s in seg]
+            shares = [s.get("solve", math.nan) / (1e6 * r.e2e_s) for s, r in zip(seg, resps)]
+            lookups = run["hits_after_warmup"] + run["misses_after_warmup"]
+            duration = sum(row["report"].duration_s for row in rows)
+            gauges = run["warm_snap"]["gauges"]
+            out = {
+                "requests": len(resps), "ok": sum(r.ok for r in resps),
+                "e2e_p50_us": e2e.get("p50"), "e2e_p99_us": e2e.get("p99"),
+                "queue_wait_p50_us": qw.get("p50"),
+                "solve_p50_us": statistics.median(solve_us),
+                "solve_share_of_e2e_p50": statistics.median(shares),
+                "batch_size_mean": sum(len(row["responses"]) for row in rows)
+                / max(1, sum(row["groups"] for row in rows)),
+                "groups_per_wave": [row["groups"] for row in rows],
+                "throughput_per_s": len(resps) / duration, "waves_s": duration,
+                "hit_rate_after_warmup": run["hits_after_warmup"] / max(1, lookups),
+                "entries_built_after_warmup": run["built_after_warmup"],
+                "cg_iters_median": statistics.median(r.info.iters for r in resps),
+                "cg_iters_range": [min(r.info.iters for r in resps),
+                                   max(r.info.iters for r in resps)],
+                "compile_us_by_entry": {k.split("entry=")[1].rstrip("}"): v for k, v in
+                                        gauges.items() if k.startswith("serve_exec_compile_us")},
+                "device_memory": {k: v for k, v in gauges.items() if k.startswith("device_")},
+                "wave_launches": [row["launches"] for row in rows],
+                "report_wave": [{"e2e_p50_us": row["report"].e2e_p50_us,
+                                 "e2e_p99_us": row["report"].e2e_p99_us,
+                                 "throughput_per_s": row["report"].throughput,
+                                 "span_coverage": row["report"].span_coverage}
+                                for row in rows]}
+            gate(out["ok"] == len(resps) == 2 * SERVE_WAVE,
+                 f"serve {backend}: {out['ok']} of {len(resps)} responses ok "
+                 f"({sorted({r.status for r in resps})})")
+            gate(run["built_after_warmup"] == 0 and run["misses_after_warmup"] == 0,
+                 f"serve {backend}: {run['built_after_warmup']} entries built and "
+                 f"{run['misses_after_warmup']} cache misses after warmup")
+            for r, s in zip(resps, seg):
+                total, e2e_us = sum(s.values()), 1e6 * r.e2e_s
+                gate(list(s) == ["queue_wait", "dispatch", "solve", "slice"]
+                     and abs(total - e2e_us) <= 0.05 * e2e_us,
+                     f"serve {backend}: segments {s} against e2e {e2e_us} us")
+            # the wrappers' counts over each wave
+            for row in rows:
+                got = row["launches"]
+                if backend == "csr":
+                    want = {"local_stiffness_p1": row["groups"], "seg_reduce": row["groups"]}
+                else:
+                    want = {"local_stiffness_p1": 0, "seg_reduce": sum(
+                        _serve_b2_per_solve(r.info.iters) for r in row["responses"])}
+                gate(all(got[k] == v for k, v in want.items())
+                     and got["spmv_ell"] == got["galerkin_residual_ell"] == 0,
+                     f"serve {backend}: a wave of {row['groups']} groups launched {got}, "
+                     f"not {want}")
+            # wave 0 against sequential solves of the same requests
+            t0 = time.perf_counter()
+            parity = []
+            for req, r in zip(run["waves"][0], rows[0]["responses"]):
+                f = req.rhs * req.bc.free_mask
+                if backend == "csr":
+                    k = req.bc.apply_matrix_only(assemble(req.plan, req.form))
+                    u_ref, info = sparse_solve(k, f, req.spec, return_info=True)
+                else:
+                    op = matfree_operator(req.plan, req.form).condensed(req.bc)
+                    u_ref, info = matfree_solve(op, f, req.spec, return_info=True)
+                scale = float(u_ref.abs().max())
+                parity.append((float((r.u - u_ref).abs().max()) / scale,
+                               r.info.iters - info.iters))
+            out["parity_rel_max"] = max(p[0] for p in parity)
+            out["parity_iter_diffs"] = sorted({p[1] for p in parity})
+            gate(out["parity_rel_max"] <= 1e-12 and out["parity_iter_diffs"] == [0],
+                 f"serve {backend}: wave 0 against sequential solves {parity}")
+            walls[f"{backend}_sequential_s"] = time.perf_counter() - t0
+            # one dispatch (one request, bucket 1) under telemetry.capture:
+            # its Chrome trace names the kernels, counts their launches
+            # against the wrappers' and gives the dispatch's idle share (a
+            # trace read through key_averages() takes tens of seconds here)
+            t0 = time.perf_counter()
+            cap_dir = os.path.join(tmp, f"capture_{backend}")
+            pend = [svc.submit(serve.poisson_requests(
+                n_requests=1, resolution=SERVE_N, backend=backend, seed=2, device="cuda")[0])]
+            before = dict(kernels.LAUNCHES)
+            with telemetry.capture(cap_dir):
+                _open_trace()
+                _, wall_s = timed(svc.drain)
+            files = sorted(os.listdir(cap_dir))
+            with open(os.path.join(cap_dir, files[-1])) as fh:
+                trace = _chrome_kernels(json.load(fh)["traceEvents"])
+            iters = [p.response().info.iters for p in pend]
+            want = (1 if backend == "csr" else 0,
+                    1 if backend == "csr" else sum(_serve_b2_per_solve(i) for i in iters))
+            got = since(before)
+            out["captured_dispatch"] = {
+                "files": files, "requests": len(pend), "iters": iters, "wall_ms": 1e3 * wall_s,
+                "device_busy_ms": trace["busy_ms"],
+                "device_idle_share": 1 - trace["busy_ms"] / (1e3 * wall_s),
+                "top_kernels": trace["top"], "launches": got, "kernel_calls": trace["calls"],
+                "lost_records": trace["lost"]}
+            gate(all(p.response().ok for p in pend)
+                 and (trace["calls"]["local_stiffness_p1"], trace["calls"]["seg_reduce"]) == want
+                 and (got["local_stiffness_p1"], got["seg_reduce"]) == want,
+                 f"serve {backend}: a captured dispatch {out['captured_dispatch']} against "
+                 f"(B1, B2) = {want}")
+            walls[f"{backend}_captured_s"] = time.perf_counter() - t0
+            results[backend] = out
+
+        # -- the reference size against the JAX package's pins --------------
+        t0 = time.perf_counter()
+        pins = {}
+        for backend in ("csr", "matfree"):
+            reqs = serve.poisson_requests(n_requests=JAX_SERVE["n_requests"],
+                                          resolution=JAX_SERVE["resolution"], backend=backend,
+                                          seed=0, device="cuda")
+            svc = serve.SolveService(window=0.0)
+            pend = [svc.submit(r) for r in reqs]
+            svc.drain()
+            got = [(p.response().info.iters, float(p.response().u.max())) for p in pend]
+            pins[backend] = got
+            gate(all(p.response().ok and p.response().batch_size == 5 for p in pend)
+                 and all(abs(g[0] - w[0]) <= 1 and abs(g[1] - w[1]) <= 1e-10
+                         for g, w in zip(got, JAX_SERVE[backend])),
+                 f"serve {backend}: reference size {got} against the JAX package's "
+                 f"{JAX_SERVE[backend]}")
+
+        walls["reference_size_s"] = time.perf_counter() - t0
+        # -- the launcher's smoke in a subprocess on the card -----------------
+        import repro_torch
+
+        env = {**os.environ, "PYTHONPATH": str(Path(repro_torch.__file__).parents[1])}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--smoke"],
+                              capture_output=True, text=True, env=env, timeout=300)
+        smoke = {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                 "stdout": proc.stdout.strip()[-300:], "stderr": proc.stderr.strip()[-1500:]}
+        gate(proc.returncode == 0 and "serve smoke OK on cuda" in proc.stdout,
+             f"serve: launch.serve --smoke {smoke}")
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        telemetry.clear_flight()
+        spans._FLIGHT_PATH = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out = {"phase": "serve", "n": SERVE_N, "dofs": runs["csr"]["waves"][0][0].plan.num_dofs,
+           "elements": runs["csr"]["waves"][0][0].plan.num_cells, "wave": SERVE_WAVE,
+           "rate_per_s": SERVE_RATE, "buckets": SERVE_BUCKETS, "backends": results,
+           "plain_checks": plain, "reference_size": pins, "launch_smoke": smoke,
+           "walls_s": walls,
+           "launches": launches, "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
 TRACE_OPENINGS = ("none", "one_kernel", "sleep", "pad")
 TRACE_REPEATS = {"local": 8, "context": 3, "coords": 2}
 
@@ -3179,7 +3582,7 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "elemalg", "trace_drops", "quickstart",
+               "matfree", "opt", "pils", "elemalg", "serve", "trace_drops", "quickstart",
                "kernels_offsets64")
 
 
@@ -3238,6 +3641,7 @@ def main(argv=None) -> int:
     opt = phase_opt()
     pils = phase_pils()
     elemalg = phase_elemalg(prob)
+    served = phase_serve()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -3250,7 +3654,8 @@ def main(argv=None) -> int:
     # and on this slice's paths, each counted from 0 around its own run
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
-             "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"]}
+             "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"],
+             "serve": served["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -3295,6 +3700,7 @@ def run_only(only) -> int:
               "opt": phase_opt,
               "pils": phase_pils,
               "elemalg": lambda: phase_elemalg(None),
+              "serve": phase_serve,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

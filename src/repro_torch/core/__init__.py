@@ -15,8 +15,10 @@ from .assembly import (  # noqa: F401
     assemble_rhs,
     assemble_rhs_batched,
     build_plan,
+    clear_assembly_caches,
     facet_context,
     geometry_context,
+    n_core_traces,
     resolve_device,
 )
 from .boundary import DirichletCondenser, FacetAssembler  # noqa: F401
@@ -49,6 +51,7 @@ from .operator import (  # noqa: F401
     MatFreeOperator,
     matfree_family,
     matfree_operator,
+    n_matfree_traces,
 )
 from .solvers import (  # noqa: F401
     SolveInfo,
@@ -84,6 +87,7 @@ from .sparse import (  # noqa: F401
     BatchedCSR,
     CSRPattern,
     cached_diagonal,
+    clear_device_mirrors,
     csr_to_ell,
     ell_layout,
 )

@@ -17,6 +17,13 @@ assembly; the sharded variants come in a later slice):
   (coefficient sets or geometries) in one batched Reduce, and for P1
   diffusion on shared coordinates one batched Map.
 * :class:`GalerkinAssembler` — the facade over a plan.
+* :func:`n_core_traces` / :func:`clear_assembly_caches` — the eager
+  counterpart of the reference's trace counter and cache release: a plan
+  records each form signature it has assembled while telemetry is on, and
+  the first assembly of a signature counts one trace
+  (``count_trace("assembly", ...)``); the
+  release drops those records and every plan's and pattern's device
+  mirrors.
 
 The volume Map of a form whose volume part is exactly ``diffusion(rho)`` on
 a P1 simplex space runs the hand-written kernel
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import functools
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -45,7 +53,7 @@ from . import forms, weakform
 from .elements import get_element
 from .mesh import FunctionSpace
 from .routing import build_matrix_routing, build_vector_routing
-from .sparse import CSR, BatchedCSR
+from .sparse import CSR, BatchedCSR, clear_device_mirrors
 
 __all__ = [
     "DTYPE",
@@ -56,8 +64,10 @@ __all__ = [
     "assemble_batched",
     "assemble_rhs_batched",
     "build_plan",
+    "clear_assembly_caches",
     "facet_context",
     "geometry_context",
+    "n_core_traces",
     "reduce_matrix",
     "reduce_vector",
     "resolve_device",
@@ -208,6 +218,9 @@ class AssemblyPlan:
         self.vec_routing = build_vector_routing(space.cell_dofs, space.num_dofs)
         self.mat_reduce = ReduceTable.for_matrix(self.mat_routing, self.device)
         self.vec_reduce = ReduceTable.for_vector(self.vec_routing, self.device)
+        # the signatures built on this plan (see note_signature)
+        self.signatures: set = set()
+        _PLANS.add(self)
 
     @property
     def nnz(self) -> int:
@@ -243,6 +256,54 @@ class AssemblyPlan:
 
     def batched_csr(self, vals: torch.Tensor) -> BatchedCSR:
         return BatchedCSR(vals, self.mat_routing.pattern)
+
+
+# ---------------------------------------------------------------------------
+# Per-signature builds: the eager counterpart of jit traces
+# ---------------------------------------------------------------------------
+
+_PLANS: "weakref.WeakSet[AssemblyPlan]" = weakref.WeakSet()
+_N_CORE_TRACES = [0]
+
+
+def n_core_traces() -> int:
+    """Builds of the assembly core: one for each (plan, form signature)
+    pair the first time it is assembled (single or batched) while
+    telemetry is on.  Assembling again with new coefficient *values* does
+    not grow it (the zero-retrace property of the reference's jit trace
+    counter)."""
+    return _N_CORE_TRACES[0]
+
+
+def note_signature(plan: AssemblyPlan, key, kind: str, spec, counter: list,
+                   backend: str | None = None) -> None:
+    """Record that ``plan`` runs the signature ``key``: a lookup counted by
+    ``count_cache(kind + "_signature", hit)`` and, the first time, one
+    trace — ``counter`` bumped and ``count_trace(kind, plan, spec,
+    backend)``.  An eager build compiles nothing, so with telemetry off
+    nothing is recorded and the call costs one flag check."""
+    if not telemetry.is_enabled():
+        return
+    hit = key in plan.signatures
+    telemetry.count_cache(f"{kind}_signature", hit)
+    if not hit:
+        plan.signatures.add(key)
+        counter[0] += 1
+        telemetry.count_trace(kind, plan, spec, backend=backend)
+
+
+def clear_assembly_caches() -> None:
+    """Drop every plan's signature records (the next assembly of each
+    signature counts a trace again), the reduce tables' row mirrors, and
+    the sparse patterns' device mirrors, ELL layouts and streaming plans
+    (:func:`~repro_torch.core.sparse.clear_device_mirrors`).  Sweeps that
+    mint many short-lived plans can call this to release device memory at
+    once."""
+    for plan in list(_PLANS):
+        plan.signatures.clear()
+        for table in (plan.mat_reduce, plan.vec_reduce):
+            table.drop_mirrors()
+    clear_device_mirrors()
 
 
 def build_plan(space: FunctionSpace, quad_order: int | None = None,
@@ -365,6 +426,7 @@ def _record(name, plan, spec, is_mat, num_cells, t0):
 def _assemble_vals(plan: AssemblyPlan, form, arity: str, coords=None) -> torch.Tensor:
     spec, leaves = weakform.lower(form, arity)
     _check_facet_coords(spec, coords)
+    note_signature(plan, ("assemble", arity, spec), "assembly", spec, _N_CORE_TRACES)
     c = plan.coords if coords is None else coords
     is_mat = arity == weakform.MATRIX
     t0 = time.perf_counter() if telemetry.is_enabled() else None
@@ -470,6 +532,8 @@ def _batched_map(plan: AssemblyPlan, spec, leaves, coords, coords_batched, batch
 def _batched_vals(plan: AssemblyPlan, form, arity, coords_batch, leaves_batch):
     spec, leaves, coords, coords_batched, batched, n_inst = _lower_batched(
         plan, form, arity, coords_batch, leaves_batch)
+    note_signature(plan, ("assemble_batched", arity, spec, coords_batched, batched),
+                   "assembly", spec, _N_CORE_TRACES, backend="batched")
     is_mat = arity == weakform.MATRIX
     t0 = time.perf_counter() if telemetry.is_enabled() else None
     with annotate("tg.map"):

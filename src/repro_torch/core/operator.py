@@ -44,7 +44,8 @@ from .. import telemetry
 from ..kernels.seg_reduce import seg_reduce
 from ..telemetry import annotate
 from . import forms, weakform
-from .assembly import AssemblyPlan, _batched_map, _lower_batched, _terms, _volume_map, reduce_vector
+from .assembly import (AssemblyPlan, _batched_map, _lower_batched, _terms, _volume_map,
+                       note_signature, reduce_vector)
 
 __all__ = [
     "LinearOperator",
@@ -52,7 +53,18 @@ __all__ = [
     "MatFreeFamily",
     "matfree_operator",
     "matfree_family",
+    "n_matfree_traces",
 ]
+
+_N_MF_TRACES = [0]
+
+
+def n_matfree_traces() -> int:
+    """Builds of matrix-free operators and families: one for each (plan,
+    form signature, store) the first time an operator of it is built while
+    telemetry is on.  Building again with new coefficient or geometry *values* does not grow
+    it (the zero-retrace property of the reference's counter)."""
+    return _N_MF_TRACES[0]
 
 
 class LinearOperator:
@@ -344,6 +356,8 @@ def matfree_operator(plan: AssemblyPlan, form, store: str = "context",
         raise ValueError(f"unknown store {store!r}; use one of {_STORES}")
     spec, leaves = weakform.lower(form, weakform.MATRIX)
     _check_volume(spec, "the matrix-free apply")
+    note_signature(plan, ("matfree", store, spec), "matfree", spec, _N_MF_TRACES,
+                   backend=store)
     c = plan.coords if coords is None else coords
     op = MatFreeOperator(plan, spec, store, coords=c, leaves=leaves)
     if store == "context":
@@ -470,6 +484,8 @@ def matfree_family(plan: AssemblyPlan, form, leaves_batch=None, store: str = "co
         plan, form, weakform.MATRIX, coords_batch, leaves_batch)
     if coords_batched:
         store = "coords"
+    note_signature(plan, ("matfree_family", store, spec, coords_batched, batched), "matfree",
+                   spec, _N_MF_TRACES, backend=f"family_{store}")
     if store == "local":
         k_b = _batched_map(plan, spec, merged, coords, False, batched, n_inst)
         op = MatFreeOperator(plan, _local_spec(spec), "local", k_local=k_b)

@@ -11,12 +11,15 @@ value vector.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
-__all__ = ["BatchedCSR", "CSR", "CSRPattern", "ELL", "cached_diagonal", "csr_to_ell",
-           "ell_layout"]
+__all__ = ["BatchedCSR", "CSR", "CSRPattern", "ELL", "cached_diagonal",
+           "clear_device_mirrors", "csr_to_ell", "ell_layout"]
+
+_PATTERNS: "weakref.WeakSet[CSRPattern]" = weakref.WeakSet()
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -42,6 +45,14 @@ class CSRPattern:
             diag_pos[self.row_of_nnz[on_diag]] = on_diag
         self.diag_pos = np.asarray(diag_pos, dtype=np.int64)
         self._staged: dict[torch.device, dict[str, torch.Tensor]] = {}
+        self._ell = None
+        self._stream = None
+        _PATTERNS.add(self)
+
+    def drop_mirrors(self) -> None:
+        """Release the device mirrors, the ELL layout and the streaming
+        plans (each is built again at its next use)."""
+        self._staged = {}
         self._ell = None
         self._stream = None
 
@@ -262,6 +273,14 @@ class ELL:
         from ..kernels.spmv_ell import spmv_ell
 
         return spmv_ell(self.vals, self.cols_dev, x)
+
+
+def clear_device_mirrors() -> None:
+    """Release every live pattern's device mirrors, ELL layout and
+    streaming plans — part of
+    :func:`repro_torch.core.clear_assembly_caches`."""
+    for pattern in list(_PATTERNS):
+        pattern.drop_mirrors()
 
 
 def ell_layout(csr: CSR) -> tuple[np.ndarray, np.ndarray, int]:

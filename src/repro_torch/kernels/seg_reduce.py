@@ -129,6 +129,10 @@ class ReduceTable:
         return cls(routing.perm, t[routing.seg_ids], t[routing.seg_ids_unsorted],
                    routing.num_dofs, device)
 
+    def drop_mirrors(self) -> None:
+        """Release the lazily staged row ids (staged again at next use)."""
+        self._rows = None
+
     @property
     def rows(self) -> torch.Tensor:
         """Global row of each local slot, ``(n_src,)`` int64 on the device."""

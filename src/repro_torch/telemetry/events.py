@@ -1,9 +1,12 @@
 """Structured runtime events and the convergence policy.
 
-The torch port of ``repro.telemetry.events``, cut to what the solver path
-calls.  An *event* is a host-side record emitted at an eager boundary (a
-solve returning, an assembly producing a CSR); it goes to a bounded
-in-memory log and is folded into the metrics registry.
+The torch port of ``repro.telemetry.events``.  An *event* is a host-side
+record emitted at an eager boundary (a solve returning, an assembly
+producing a CSR, a profile capture finishing).  Events are appended to a
+bounded in-memory log, folded into the metrics registry, and streamed to
+the configured JSON-lines file in the ``BENCH_JSON`` row format
+(``{"name", "us_per_call", "derived", ...extras}``).  An event recorded
+under an open span carries that span's ``trace_id`` and ``span_id``.
 
 :func:`check_convergence` is the host-side guard that turns a ``maxiter``
 exit into a :class:`ConvergenceWarning` (default) or
@@ -19,7 +22,7 @@ import warnings
 
 import numpy as np
 
-from . import metrics
+from . import metrics, spans
 
 __all__ = [
     "ConvergenceWarning",
@@ -57,19 +60,51 @@ def clear_events() -> None:
         _EVENTS.clear()
 
 
+def _derived(fields: dict) -> str:
+    return ";".join(f"{k}={v}" for k, v in fields.items() if v is not None)
+
+
 def record_event(kind: str, name: str, *, wall_us: float | None = None, **fields):
-    """Record one structured event; returns it, or ``None`` when telemetry
-    is disabled."""
+    """Record one structured event.  Returns the event dict, or ``None``
+    when telemetry is disabled or a field cannot be read on the host."""
     if not metrics.is_enabled():
         return None
-    ev = {"kind": kind, "name": name, "t": time.time(),
-          **{k: metrics.concrete_or_none(v) for k, v in fields.items()}}
-    if wall_us is not None:
-        ev["wall_us"] = round(float(wall_us), 1)
+    clean: dict = {}
+    for k, v in fields.items():
+        c = metrics.concrete_or_none(v)
+        if c is None and v is not None:
+            return None  # an unreadable value: skip the whole event
+        if isinstance(c, np.ndarray):
+            c = c.tolist()
+        if isinstance(c, np.generic):
+            c = c.item()
+        clean[k] = c
+    wall = metrics.concrete_or_none(wall_us)
+    ev = {"kind": kind, "name": name, "t": time.time(), **clean}
+    if wall is not None:
+        ev["wall_us"] = round(float(wall), 1)
+    # an event recorded under an open span inherits its trace identity, so
+    # per-request timelines include their solve events
+    sp = spans.current_span()
+    if sp is not None and sp is not spans.NULL_SPAN:
+        ev["trace_id"] = sp.trace_id
+        ev["span_id"] = sp.span_id
     with _EVENTS_LOCK:
         if len(_EVENTS) < _EVENT_LIMIT:
             _EVENTS.append(ev)
     metrics.counter_inc("events", 1, kind=kind)
+    if metrics.jsonl_path():
+        row = {
+            "name": f"{kind}/{name}",
+            "us_per_call": ev.get("wall_us", 0.0),
+            "derived": _derived(clean),
+            "kind": kind,
+            **clean,
+        }
+        if "trace_id" in ev:
+            row["trace_id"] = ev["trace_id"]
+            row["span_id"] = ev["span_id"]
+        metrics.append_jsonl_row(row)
     return ev
 
 
@@ -93,10 +128,11 @@ def check_convergence(info, where: str = "solve", on_fail: str | None = None):
     """Host-side non-convergence guard for a ``SolveInfo`` (scalar or
     stacked leaves).  If any solve has ``converged=False``, apply the
     policy: ``"warn"`` (default, a :class:`ConvergenceWarning`),
-    ``"raise"`` (:class:`NonConvergedError`), or ``"ignore"``."""
+    ``"raise"`` (:class:`NonConvergedError`), or ``"ignore"``.  Returns
+    the summary dict."""
     s = _summarize_info(info)
     if s["converged"]:
-        return
+        return s
     policy = on_fail or metrics.nonconverged_policy()
     msg = (
         f"{where}: solver did NOT converge after {s['iterations_max']} iterations "
@@ -108,6 +144,7 @@ def check_convergence(info, where: str = "solve", on_fail: str | None = None):
         raise NonConvergedError(msg)
     if policy == "warn":
         warnings.warn(msg, ConvergenceWarning, stacklevel=3)
+    return s
 
 
 def record_solve(name: str, info, *, method: str | None = None,

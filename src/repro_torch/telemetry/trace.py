@@ -4,20 +4,26 @@
 on the host timeline of a ``torch.profiler`` trace through
 ``torch.profiler.record_function``, and on CUDA also as an NVTX range.  It
 records only while telemetry is enabled: when off, entering it costs one
-boolean check.  :func:`span` is the request-tracing hook of the JAX
-package; request tracing is not ported yet, so it is a no-op.
+boolean check.
+
+:func:`capture` records a ``torch.profiler`` trace of a block and writes it
+as Chrome/Perfetto JSON (the counterpart of the reference's
+``jax.profiler.trace``): the host ops, the phases named by
+:class:`annotate` and, on a CUDA machine, every kernel the block launched.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import time
 
 import torch
 
-from . import metrics
+from . import events, metrics
 
-__all__ = ["annotate", "span"]
+__all__ = ["annotate", "capture"]
 
 
 class annotate:
@@ -56,6 +62,25 @@ class annotate:
         return wrapped
 
 
-def span(name: str, **tags):
-    """Request-tracing span: a no-op context in this port."""
-    return contextlib.nullcontext()
+@contextlib.contextmanager
+def capture(path: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block into the
+    directory ``path``, as ``trace_<ns>.json`` (Chrome trace format: load it
+    in Perfetto or ``chrome://tracing``)::
+
+        with telemetry.capture("/tmp/tg_profile"):
+            u = prob.solve(backend="matfree")
+
+    Device activity is recorded when CUDA is available.  Emits a
+    ``trace_captured`` telemetry event when recording is enabled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(path, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    file = os.path.join(path, f"trace_{time.time_ns()}.json")
+    prof.export_chrome_trace(file)
+    events.record_event("profile", "trace_captured", path=path, file=file)
