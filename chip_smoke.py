@@ -141,9 +141,25 @@ Phases, one JSON line each:
    summing to e2e, a ``telemetry.capture`` naming the kernels, the JAX
    package's numbers at resolution 6, and ``python -m
    repro_torch.launch.serve --smoke`` in a subprocess;
-20. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+20. sharded — element-parallel sharding over ``torch.distributed`` ranks
+   spawned on the one card (``torch.multiprocessing``, start method
+   ``spawn``; each rank builds its own n = 64 plan and reports through a
+   queue): one rank on NCCL, where the sharded assembly and each store's
+   ``matfree_sharded`` solve must be bit-equal to the unsharded ones; two
+   ranks on gloo (NCCL refuses two ranks on one card), where the sharded
+   stiffness and load must lie within 1e-13 of max|vals| of the
+   single-device B1 + B2 assembly, each store's solve take 147 ± 1
+   iterations with u within 1e-8 of ``ell``'s and the same on both ranks
+   bit for bit, 5 Crank–Nicolson steps on ``matfree_sharded`` lie within
+   1e-10 of ``matfree``'s, ∂/∂ρ of Σu² at n = 16 within 1e-10 of the
+   unsharded gradient, B1 and B2 at each rank's block match their plain
+   versions (B2 bit for bit against the ordered sum), and an apply launch
+   one B2 and one all-reduce a rank (its gather, action, B2 and
+   all-reduce timed, and each rank's device memory read); four ranks on
+   gloo at unit_cube_tet(9), whose 4,374 elements split unevenly;
+21. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-21. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+22. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -165,7 +181,8 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``opt``, ``pils``, ``elemalg``, ``serve``, ``quickstart`` and ``kernels_offsets64`` alone; ``trace_drops`` runs only
+``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``quickstart`` and
+``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
 (after other phases: ``--only mixed_bc,elasticity,batched,trace_drops``).
@@ -3467,6 +3484,411 @@ TRACE_OPENINGS = ("none", "one_kernel", "sleep", "pad")
 TRACE_REPEATS = {"local": 8, "context": 3, "coords": 2}
 
 
+# The sharded phase (A16): ranks spawned on the one card, each with its own
+# process group over a file rendezvous under build/
+SHARDED_THETA_STEPS = 5
+SHARDED_GRAD_N = 16
+SHARDED_UNEVEN_N = 9  # E = 4,374: blocks of 1,094 on 4 ranks, the last 1,092
+SHARDED_GROUP_TIMEOUT_S = 60
+SHARDED_REPS = 25
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _host_ms(fn, reps: int = SHARDED_REPS) -> float:
+    """Median host wall time of ``fn`` between two device synchronisations
+    (for work that blocks the host, as a gloo all-reduce does)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def _sharded_theta(prob, backend):
+    """SHARDED_THETA_STEPS Crank–Nicolson steps on matrix-free operators
+    at CG tolerance 1e-12 (absolute 1e-15) from the sine state."""
+    from repro_torch.core import SolverSpec
+
+    integ, u0 = _heat_rollout(prob, backend,
+                              spec=SolverSpec(method="cg", tol=1e-12, atol=1e-15))
+    traj, info = integ.rollout(u0, SHARDED_THETA_STEPS, return_info=True)
+    return traj, info.iters.tolist()
+
+
+def _sharded_assembly(plan, mesh) -> dict:
+    """The sharded stiffness and load against the single-device B1 + B2
+    assembly: (max abs difference, max |value|) each, and whether they are
+    bit-equal."""
+    from repro_torch.core import (assemble, assemble_rhs, assemble_rhs_sharded,
+                                  assemble_sharded, weakform as wf)
+
+    out = {}
+    for name, sharded, single in (
+            ("stiffness", lambda: assemble_sharded(plan, wf.diffusion(None), mesh).vals,
+             lambda: assemble(plan, wf.diffusion(None)).vals),
+            ("load", lambda: assemble_rhs_sharded(plan, wf.source(1.0), mesh),
+             lambda: assemble_rhs(plan, wf.source(1.0)))):
+        got, want = sharded(), single()
+        out[name] = {"max_abs_err": float((got - want).abs().max()),
+                     "scale": float(want.abs().max()), "bit_equal": torch.equal(got, want)}
+    return out
+
+
+def _sharded_nccl1(mesh) -> dict:
+    """A one-rank NCCL world at n = 64: the sharded assembly and the
+    sharded matrix-free solve of each store against the unsharded ones."""
+    from repro_torch.core import unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+
+    prob, setup_s = timed(lambda: PoissonProblem(unit_cube_tet(MAIN_N), device="cuda"))
+    stores = {}
+    for store in MATFREE_STORES:
+        r0 = prob.solve(f=1.0, backend="matfree", store=store)
+        r1, first_s = timed(lambda: prob.solve(f=1.0, backend="matfree_sharded", store=store))
+        # warm walls, one after the other in this process
+        _, warm0 = timed(lambda: prob.solve(f=1.0, backend="matfree", store=store))
+        _, warm1 = timed(lambda: prob.solve(f=1.0, backend="matfree_sharded", store=store))
+        stores[store] = {"bit_equal": torch.equal(r0.u, r1.u), "iters": r1.iters,
+                         "unsharded_iters": r0.iters, "first_s": first_s, "warm_s": warm1,
+                         "unsharded_warm_s": warm0,
+                         "max_abs_diff": float((r0.u - r1.u).abs().max())}
+    return {"setup_s": setup_s, "assembly": _sharded_assembly(prob.plan, mesh),
+            "stores": stores}
+
+
+def _sharded_block_kernels(plan, mesh, y_local) -> dict:
+    """B1 and B2 at the rank's block: B1 on the block's coordinates against
+    ``local_stiffness_p1_ref``; B2 on the block's stiffness table (B1's
+    output) and vector table (``y_local``) bit for bit against the ordered
+    plain sum on the table and against ``seg_reduce_ref``."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ref import local_stiffness_p1_ref, seg_reduce_ref
+
+    ordered = ordered_reduce_ref()
+    shard = plan.shard(mesh)
+    rho = torch.ones(shard.num_cells, dtype=torch.float64, device="cuda")
+    k_e = kernels.local_stiffness_p1(shard.coords, rho)
+    err, scale = max_err(k_e, local_stiffness_p1_ref(shard.coords, rho))
+    out = {"block": list(shard.block),
+           "b1": {"elements": shard.num_cells, "max_abs_err": err, "scale": scale}}
+    for name, src, table in (("b2_stiffness", k_e, shard.mat_reduce),
+                             ("b2_vector", y_local, shard.vec_reduce)):
+        got = kernels.seg_reduce(src, table)
+        err, scale = max_err(got, seg_reduce_ref(src, table.rows, table.n_rows))
+        out[name] = {"rows": table.n_rows, "src": table.n_src, "max_abs_err": err,
+                     "scale": scale,
+                     "bit_equal_ordered": torch.equal(got, ordered(src, table.slots, table.ptr))}
+    return out
+
+
+def _sharded_gloo2(mesh) -> dict:
+    """Rank ``mesh.rank`` of two on the one card (gloo) at n = 64: the
+    path (sharded assembly and a sharded matrix-free solve on each store,
+    counted from 0), the assembly against the single-device one, each
+    store's u against ``ell``, one apply's gather, action, B2 and
+    all-reduce, the θ rollout and the gradient against the unsharded
+    ones, B1/B2 at the rank's block, device memory."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import (SolverSpec, assemble_rhs, assemble_rhs_sharded,
+                                  assemble_sharded, matfree_operator, matfree_solve,
+                                  unit_cube_tet, weakform as wf)
+    from repro_torch.core.assembly import reduce_vector
+    from repro_torch.fem import PoissonProblem
+    from repro_torch.sharding import COLLECTIVES, reduce_from_shards, reset_collectives
+
+    probe = torch.full((4,), float(mesh.rank + 1), dtype=torch.float64, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.reset_peak_memory_stats()
+    prob, setup_s = timed(lambda: PoissonProblem(unit_cube_tet(MAIN_N), device="cuda"))
+    plan, bc = prob.plan, prob.bc
+    ell = prob.solve(f=1.0)
+
+    # the path, counted from 0 around it
+    kernels.reset_launches()
+    reset_collectives()
+    _, assemble_s = timed(lambda: (assemble_sharded(plan, wf.diffusion(None), mesh),
+                                   assemble_rhs_sharded(plan, wf.source(1.0), mesh)))
+    firsts = {}
+    for store in MATFREE_STORES:
+        before, before_c = dict(kernels.LAUNCHES), dict(COLLECTIVES)
+        res, first_s = timed(lambda: prob.solve(f=1.0, backend="matfree_sharded", store=store))
+        firsts[store] = (res, first_s, {k: v - before[k] for k, v in kernels.LAUNCHES.items()},
+                         {k: v - before_c[k] for k, v in COLLECTIVES.items()})
+    launches, collectives = dict(kernels.LAUNCHES), dict(COLLECTIVES)
+    memory = {"peak_bytes": torch.cuda.max_memory_allocated(),
+              "allocated_bytes": torch.cuda.memory_allocated()}
+
+    out = {"probe": probe.tolist(), "setup_s": setup_s, "assemble_s": assemble_s,
+           "launches": launches, "collectives": collectives, "memory": memory,
+           "assembly": _sharded_assembly(plan, mesh), "ell_iters": ell.iters, "stores": {}}
+    x = ell.u.clone()
+    m = bc.free_mask.to(x.dtype)
+    for store in MATFREE_STORES:
+        res, first_s, counts, coll = firsts[store]
+        _, warm_s = timed(lambda: prob.solve(f=1.0, backend="matfree_sharded", store=store))
+        op = matfree_operator(plan, wf.diffusion(None), store=store).sharded(mesh).condensed(bc)
+        block = op._block()
+        shard = block.plan
+        xe = (m * x)[shard.cell_dofs]
+        y_local = block._local_apply(xe, False)
+        part = reduce_vector(y_local, shard)
+        buffers = iter([part.clone() for _ in range(SHARDED_REPS + 1)])
+        kernels.reset_launches()
+        reset_collectives()
+        op.matvec(x)
+        torch.cuda.synchronize()
+        per_apply = {"b2": kernels.LAUNCHES["seg_reduce"],
+                     "all_reduce": COLLECTIVES["reduce_from_shards"]}
+        out["stores"][store] = {
+            "iters": res.iters, "converged": res.converged, "residual": res.residual,
+            "max_u": float(res.u.max()), "max_abs_diff_vs_ell": float((res.u - ell.u).abs().max()),
+            "u_digest": _digest(res.u), "first_s": first_s, "warm_s": warm_s,
+            "launches": counts, "collectives": coll, "per_apply": per_apply,
+            "gather_ms": time_ms(lambda: (m * x)[shard.cell_dofs]),
+            "action_ms": time_ms(lambda: block._local_apply(xe, False)),
+            "b2_ms": time_ms(lambda: reduce_vector(y_local, shard)),
+            "all_reduce_host_ms": _host_ms(lambda: reduce_from_shards(next(buffers), mesh)),
+            "apply_host_ms": _host_ms(lambda: op.matvec(x))}
+    out["kernels"] = _sharded_block_kernels(plan, mesh, y_local)
+
+    (traj_sh, it_sh), theta_s = timed(lambda: _sharded_theta(prob, "matfree_sharded"))
+    (traj_mf, it_mf), theta_mf_s = timed(lambda: _sharded_theta(prob, "matfree"))
+    out["theta"] = {"iters": it_sh, "unsharded_iters": it_mf, "wall_s": theta_s,
+                    "unsharded_wall_s": theta_mf_s, "traj_digest": _digest(traj_sh),
+                    "max_rel_diff": float((traj_sh - traj_mf).abs().max()
+                                          / traj_mf.abs().max())}
+
+    p16 = PoissonProblem(unit_cube_tet(SHARDED_GRAD_N), device="cuda")
+    load16 = p16.bc.project_residual(assemble_rhs(p16.plan, wf.source(1.0)))
+    x_mid = p16.plan.coords[:, :, 0].mean(dim=1)
+    spec = SolverSpec(method="cg", tol=1e-12, atol=1e-12)
+
+    def grad(sharded):
+        rho = (1.0 + x_mid).requires_grad_(True)
+        op16 = matfree_operator(p16.plan, wf.diffusion(rho))
+        if sharded:
+            op16 = op16.sharded(mesh)
+        u = matfree_solve(op16.condensed(p16.bc), load16, spec)
+        return torch.autograd.grad((u ** 2).sum(), rho)[0]
+
+    reset_collectives()
+    g_sh = grad(True)
+    grad_collectives = dict(COLLECTIVES)
+    g_mf = grad(False)
+    out["gradient"] = {"n": SHARDED_GRAD_N, "g_digest": _digest(g_sh),
+                       "collectives": grad_collectives,
+                       "rel_diff": float((g_sh - g_mf).abs().max() / g_mf.abs().max())}
+    return out
+
+
+def _sharded_gloo4(mesh) -> dict:
+    """Rank ``mesh.rank`` of four at unit_cube_tet(9) (E = 4,374, split
+    unevenly): the assembly against the single-device one, the sharded
+    solve against ``matfree`` and ``ell``."""
+    from repro_torch.core import unit_cube_tet
+    from repro_torch.fem import PoissonProblem
+
+    prob = PoissonProblem(unit_cube_tet(SHARDED_UNEVEN_N), device="cuda")
+    ell = prob.solve(f=1.0)
+    mf = prob.solve(f=1.0, backend="matfree")
+    sh = prob.solve(f=1.0, backend="matfree_sharded")
+    return {"elements": prob.plan.num_cells, "block": list(prob.plan.shard(mesh).block),
+            "assembly": _sharded_assembly(prob.plan, mesh), "iters": sh.iters,
+            "matfree_iters": mf.iters, "ell_iters": ell.iters, "u_digest": _digest(sh.u),
+            "max_abs_diff_vs_ell": float((sh.u - ell.u).abs().max())}
+
+
+SHARDED_JOBS = {"nccl1": _sharded_nccl1, "gloo2": _sharded_gloo2, "gloo4": _sharded_gloo4}
+
+
+def _sharded_rank(rank: int, size: int, backend: str, init_file: str, job: str, out) -> None:
+    """One rank of the ``sharded`` phase: a process group of ``backend``
+    over a file rendezvous (with a timeout, so that a rank that dies fails
+    the world instead of hanging it), the job on the card, its readings or
+    its traceback put on ``out``; nothing on stdout."""
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    # no network on the machine: the ranks meet on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                                world_size=size,
+                                timeout=datetime.timedelta(seconds=SHARDED_GROUP_TIMEOUT_S))
+        from repro_torch.sharding import fem_mesh
+
+        res = SHARDED_JOBS[job](fem_mesh(device="cuda"))
+        dist.barrier()
+        out.put((rank, res, None))
+    except Exception:  # the rank's boundary: report the traceback, fail the phase
+        out.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sharded_world(job: str, backend: str, size: int, timeout: float):
+    """Spawn ``size`` ranks of ``job`` and wait for them: (results by rank,
+    errors, wall seconds).  Every rank is joined, or terminated, before
+    this returns."""
+    import os
+    import queue
+
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    init = ROOT / "build" / f"rendezvous_{os.getpid()}_{job}"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_sharded_rank, args=(r, size, backend, str(init), job, results))
+             for r in range(size)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in range(size):
+            rank, res, err = results.get(timeout=timeout)
+            if err is None:
+                got[rank] = res
+            else:
+                errors.append(f"{job} rank {rank}:\n{err}")
+    except queue.Empty:
+        errors.append(f"{job}: {len(got)} of {size} ranks answered within {timeout} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        init.unlink(missing_ok=True)
+    return got, errors, time.perf_counter() - t0
+
+
+def phase_sharded():
+    """Element-parallel sharding (A16) on the card, ranks spawned with
+    ``torch.multiprocessing``: a one-rank NCCL world at n = 64 (the sharded
+    assembly and each store's sharded matrix-free solve bit-equal to the
+    unsharded ones); two ranks on the one card over gloo at n = 64 (the
+    sharded stiffness and load within 1e-13 of max|vals| of the
+    single-device B1 + B2 assembly, each store's solve in 147 ± 1
+    iterations with u within 1e-8 of ``ell``, both ranks bit-identical, 5
+    Crank–Nicolson steps within 1e-10 of ``matfree``, ∂/∂ρ of Σu² at n =
+    16 within 1e-10 of the unsharded gradient, B1/B2 at each rank's block
+    against their plain versions, one B2 and one all-reduce an apply, the
+    apply's gather / action / B2 / all-reduce times and device memory); and
+    four ranks at unit_cube_tet(9), whose 4,374 elements split unevenly."""
+    worlds, gates = {}, []
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    t_phase = time.perf_counter()
+    for job, backend, size, timeout in (("nccl1", "nccl", 1, 240), ("gloo2", "gloo", 2, 420),
+                                        ("gloo4", "gloo", 4, 180)):
+        got, errors, wall = _sharded_world(job, backend, size, timeout)
+        worlds[job] = {"backend": backend, "ranks": size, "wall_s": wall,
+                       "results": [got.get(r) for r in range(size)], "errors": errors}
+        gate(not errors, f"sharded {job}: " + "\n".join(errors))
+    failed = [ok for ok, _ in gates if not ok]
+    if not failed:
+        one = worlds["nccl1"]["results"][0]
+        for name, row in one["assembly"].items():
+            gate(row["bit_equal"], f"sharded nccl1: the {name} is not bit-equal to assemble's")
+        for store, row in one["stores"].items():
+            gate(row["bit_equal"] and row["iters"] == row["unsharded_iters"],
+                 f"sharded nccl1 {store}: not bit-equal to the unsharded solve {row}")
+
+        ranks = worlds["gloo2"]["results"]
+        for r, res in enumerate(ranks):
+            gate(res["probe"] == [3.0] * 4, f"gloo2 rank {r}: CUDA all-reduce gave {res['probe']}")
+            for name, row in res["assembly"].items():
+                gate(row["max_abs_err"] <= 1e-13 * row["scale"],
+                     f"gloo2 rank {r}: the sharded {name} is {row} from the single-device one")
+            for store, row in res["stores"].items():
+                b1 = 1 if store == "local" else 0
+                gate(row["converged"] and abs(row["iters"] - 147) <= 1,
+                     f"gloo2 rank {r} {store}: {row['iters']} iterations")
+                gate(row["max_abs_diff_vs_ell"] <= 1e-8,
+                     f"gloo2 rank {r} {store}: u {row['max_abs_diff_vs_ell']} from ell's")
+                # a solve: the load's Reduce, the Jacobi diagonal, CG's first
+                # residual, one apply an iteration and the final residual
+                gate(row["launches"]["seg_reduce"] == row["iters"] + 4
+                     and row["collectives"]["reduce_from_shards"] == row["iters"] + 3
+                     and row["launches"]["local_stiffness_p1"] == b1,
+                     f"gloo2 rank {r} {store}: launches {row['launches']}, "
+                     f"all-reduces {row['collectives']}")
+                gate(row["per_apply"] == {"b2": 1, "all_reduce": 1},
+                     f"gloo2 rank {r} {store}: an apply launched {row['per_apply']}")
+            ker = res["kernels"]
+            gate(ker["b1"]["max_abs_err"] <= 1e-12 * ker["b1"]["scale"],
+                 f"gloo2 rank {r}: B1 at the block {ker['b1']}")
+            for name in ("b2_stiffness", "b2_vector"):
+                gate(ker[name]["bit_equal_ordered"]
+                     and ker[name]["max_abs_err"] <= 1e-12 * ker[name]["scale"],
+                     f"gloo2 rank {r}: {name} at the block {ker[name]}")
+            gate(res["theta"]["max_rel_diff"] <= 1e-10,
+                 f"gloo2 rank {r}: θ rollout {res['theta']['max_rel_diff']} from matfree's")
+            gate(res["gradient"]["rel_diff"] <= 1e-10,
+                 f"gloo2 rank {r}: gradient {res['gradient']['rel_diff']} from the unsharded")
+            for name in ("local_stiffness_p1", "seg_reduce"):
+                gate(res["launches"][name] > 0, f"gloo2 rank {r}: {name} never launched")
+        a, b = ranks
+        for store in MATFREE_STORES:
+            gate(a["stores"][store]["u_digest"] == b["stores"][store]["u_digest"]
+                 and a["stores"][store]["iters"] == b["stores"][store]["iters"],
+                 f"gloo2 {store}: the ranks' u or iterations differ")
+        gate(a["theta"]["traj_digest"] == b["theta"]["traj_digest"]
+             and a["theta"]["iters"] == b["theta"]["iters"], "gloo2: the ranks' θ rollouts differ")
+        gate(a["gradient"]["g_digest"] == b["gradient"]["g_digest"],
+             "gloo2: the ranks' gradients differ")
+        gate([res["kernels"]["block"] for res in ranks] == [[0, 786_432], [786_432, 1_572_864]],
+             f"gloo2: blocks {[res['kernels']['block'] for res in ranks]}")
+
+        four = worlds["gloo4"]["results"]
+        gate([res["block"] for res in four]
+             == [[0, 1094], [1094, 2188], [2188, 3282], [3282, 4374]],
+             f"gloo4: blocks {[res['block'] for res in four]}")
+        for r, res in enumerate(four):
+            for name, row in res["assembly"].items():
+                gate(row["max_abs_err"] <= 1e-13 * row["scale"],
+                     f"gloo4 rank {r}: the sharded {name} is {row} from the single-device one")
+            gate(abs(res["iters"] - res["matfree_iters"]) <= 1
+                 and res["max_abs_diff_vs_ell"] <= 1e-8, f"gloo4 rank {r}: {res}")
+        gate(len({(res["u_digest"], res["iters"]) for res in four}) == 1,
+             "gloo4: the ranks' u or iterations differ")
+
+    # the path's launches: the two ranks' sharded assembly and three solves
+    launches = ({k: sum(res["launches"][k] for res in worlds["gloo2"]["results"])
+                 for k in worlds["gloo2"]["results"][0]["launches"]}
+                if not failed else None)
+    out = {"phase": "sharded", "n": MAIN_N, "launches": launches, "worlds": worlds,
+           "phase_s": time.perf_counter() - t_phase,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
 def phase_trace_drops():
     """How often a torch.profiler trace misses a launch of B1 or B2 that
     the wrappers counted, and which records it loses: the matrix-free
@@ -3582,8 +4004,8 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "elemalg", "serve", "trace_drops", "quickstart",
-               "kernels_offsets64")
+               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "trace_drops",
+               "quickstart", "kernels_offsets64")
 
 
 def main(argv=None) -> int:
@@ -3642,6 +4064,7 @@ def main(argv=None) -> int:
     pils = phase_pils()
     elemalg = phase_elemalg(prob)
     served = phase_serve()
+    sharded = phase_sharded()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -3655,7 +4078,7 @@ def main(argv=None) -> int:
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
              "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"],
-             "serve": served["launches"]}
+             "serve": served["launches"], "sharded": sharded["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -3701,6 +4124,7 @@ def run_only(only) -> int:
               "pils": phase_pils,
               "elemalg": lambda: phase_elemalg(None),
               "serve": phase_serve,
+              "sharded": phase_sharded,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

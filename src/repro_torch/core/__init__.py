@@ -3,7 +3,10 @@ assembly, sparse containers, matrix-free operators, Dirichlet condensation
 and Krylov solvers.
 
 Everything is float64 (the paper solves to a 1e-10 residual) and runs on
-the CUDA device unless the caller passes ``device="cpu"``.
+the CUDA device unless the caller passes ``device="cpu"``.  The sharded
+entry points (:func:`assemble_sharded`, :class:`ShardedMatFreeOperator`)
+split the element axis over the ranks of a ``torch.distributed`` group
+(:mod:`repro_torch.sharding`).
 """
 
 from .assembly import (  # noqa: F401
@@ -14,6 +17,8 @@ from .assembly import (  # noqa: F401
     assemble_batched,
     assemble_rhs,
     assemble_rhs_batched,
+    assemble_rhs_sharded,
+    assemble_sharded,
     build_plan,
     clear_assembly_caches,
     facet_context,
@@ -49,6 +54,7 @@ from .operator import (  # noqa: F401
     LinearOperator,
     MatFreeFamily,
     MatFreeOperator,
+    ShardedMatFreeOperator,
     matfree_family,
     matfree_operator,
     n_matfree_traces,

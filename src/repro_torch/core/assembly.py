@@ -1,7 +1,7 @@
 """TensorGalerkin: Batch-Map + Sparse-Reduce assembly (the paper's core).
 
-The torch port of ``repro.core.assembly`` (single-instance and batched
-assembly; the sharded variants come in a later slice):
+The torch port of ``repro.core.assembly`` (single-instance, batched and
+element-parallel sharded assembly):
 
 * :func:`geometry_context` — Stage-I geometry: batched Jacobians,
   closed-form inverses/determinants, push-forward gradients (Alg. 1,
@@ -16,6 +16,10 @@ assembly; the sharded variants come in a later slice):
 * :func:`assemble_batched` / :func:`assemble_rhs_batched` — B instances
   (coefficient sets or geometries) in one batched Reduce, and for P1
   diffusion on shared coordinates one batched Map.
+* :func:`assemble_sharded` / :func:`assemble_rhs_sharded` — the element
+  axis split over the ranks of a :class:`~repro_torch.sharding.FemMesh`:
+  each rank maps and reduces its own block (:class:`PlanShard`) to a
+  partial result, and one all-reduce completes the Reduce.
 * :class:`GalerkinAssembler` — the facade over a plan.
 * :func:`n_core_traces` / :func:`clear_assembly_caches` — the eager
   counterpart of the reference's trace counter and cache release: a plan
@@ -48,6 +52,8 @@ import torch
 from .. import telemetry
 from ..kernels.local_assembly import local_stiffness_p1
 from ..kernels.seg_reduce import ReduceTable, seg_reduce
+from ..sharding.partitioning import (FemMesh, reduce_from_shards, resolve_fem_mesh,
+                                     shard_leaves, to_shard)
 from ..telemetry import annotate
 from . import forms, weakform
 from .elements import get_element
@@ -59,10 +65,13 @@ __all__ = [
     "DTYPE",
     "AssemblyPlan",
     "GalerkinAssembler",
+    "PlanShard",
     "assemble",
     "assemble_rhs",
     "assemble_batched",
     "assemble_rhs_batched",
+    "assemble_sharded",
+    "assemble_rhs_sharded",
     "build_plan",
     "clear_assembly_caches",
     "facet_context",
@@ -220,6 +229,8 @@ class AssemblyPlan:
         self.vec_reduce = ReduceTable.for_vector(self.vec_routing, self.device)
         # the signatures built on this plan (see note_signature)
         self.signatures: set = set()
+        # each rank's element block and Reduce tables, by (mesh size, rank)
+        self._shards: dict[tuple[int, int], PlanShard] = {}
         _PLANS.add(self)
 
     @property
@@ -256,6 +267,71 @@ class AssemblyPlan:
 
     def batched_csr(self, vals: torch.Tensor) -> BatchedCSR:
         return BatchedCSR(vals, self.mat_routing.pattern)
+
+    def shard(self, mesh: FemMesh) -> "PlanShard":
+        """This rank's block of the plan's elements on ``mesh``, built
+        once per (mesh size, rank) and kept on the plan."""
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank computes on {mesh.device}, but the plan lives "
+                             f"on {self.device}")
+        key = (mesh.size, mesh.rank)
+        shard = self._shards.get(key)
+        if shard is None:
+            shard = self._shards[key] = PlanShard(self, *mesh.block(self.num_cells))
+        return shard
+
+
+class PlanShard:
+    """One rank's contiguous block ``[lo, hi)`` of a plan's elements, in
+    the plan's place in the Map and the Reduce of the sharded paths: the
+    plan's quadrature and basis tables, the block of its element tables
+    (``coords``, ``cell_dofs``, ``scalar_cell_dofs``), and Reduce tables
+    over the block's local slots alone onto all the plan's rows
+    (:meth:`ReduceTable.for_slot_range`), each built at first use."""
+
+    def __init__(self, plan: AssemblyPlan, lo: int, hi: int):
+        self.plan, self.lo, self.hi = plan, lo, hi
+        self.device, self.element = plan.device, plan.element
+        self.value_size, self.num_dofs = plan.value_size, plan.num_dofs
+        self.w, self.phi, self.gradhat = plan.w, plan.phi, plan.gradhat
+        self.geo_phi, self.geo_grad = plan.geo_phi, plan.geo_grad
+        self.coords = plan.coords[lo:hi]
+        self.cell_dofs = plan.cell_dofs[lo:hi]
+        self.scalar_cell_dofs = plan.scalar_cell_dofs[lo:hi]
+        self._mat_reduce = self._vec_reduce = None
+
+    context = AssemblyPlan.context
+    quadrature_points = AssemblyPlan.quadrature_points
+
+    @property
+    def block(self) -> tuple[int, int]:
+        return self.lo, self.hi
+
+    @property
+    def num_cells(self) -> int:
+        return self.hi - self.lo
+
+    def _slots(self, rows_unsorted: np.ndarray) -> tuple[int, int]:
+        per = rows_unsorted.shape[0] // self.plan.num_cells
+        return self.lo * per, self.hi * per
+
+    @property
+    def mat_reduce(self) -> ReduceTable:
+        if self._mat_reduce is None:
+            r = self.plan.mat_routing
+            self._mat_reduce = ReduceTable.for_slot_range(
+                r.seg_ids_unsorted, *self._slots(r.seg_ids_unsorted), r.nnz, self.device)
+        return self._mat_reduce
+
+    @property
+    def vec_reduce(self) -> ReduceTable:
+        if self._vec_reduce is None:
+            r = self.plan.vec_routing
+            lo, hi = self._slots(r.seg_ids_unsorted)
+            rows = r.touched[r.seg_ids_unsorted[lo:hi]]
+            self._vec_reduce = ReduceTable.for_slot_range(rows, 0, hi - lo, r.num_dofs,
+                                                          self.device)
+        return self._vec_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -294,13 +370,15 @@ def note_signature(plan: AssemblyPlan, key, kind: str, spec, counter: list,
 
 def clear_assembly_caches() -> None:
     """Drop every plan's signature records (the next assembly of each
-    signature counts a trace again), the reduce tables' row mirrors, and
+    signature counts a trace again), its ranks' blocks and their Reduce
+    tables (:meth:`AssemblyPlan.shard`), the reduce tables' row mirrors, and
     the sparse patterns' device mirrors, ELL layouts and streaming plans
     (:func:`~repro_torch.core.sparse.clear_device_mirrors`).  Sweeps that
     mint many short-lived plans can call this to release device memory at
     once."""
     for plan in list(_PLANS):
         plan.signatures.clear()
+        plan._shards.clear()
         for table in (plan.mat_reduce, plan.vec_reduce):
             table.drop_mirrors()
     clear_device_mirrors()
@@ -576,6 +654,59 @@ def assemble_rhs_batched(plan: AssemblyPlan, form, coords_batch=None,
     return _batched_vals(plan, form, weakform.VECTOR, coords_batch, leaves_batch)
 
 
+# -- element-parallel sharded assembly ---------------------------------------
+
+def _sharded_vals(plan: AssemblyPlan, form, arity, mesh, axis_name, coords):
+    """The rank's Map on its element block (B1 for P1 diffusion), B2 on
+    its block's table to a partial result, one all-reduce.  A rank
+    without elements reduces nothing to zeros and still joins the
+    all-reduce."""
+    spec, leaves = weakform.lower(form, arity)
+    if any(domain is not None for _, domain, _ in spec):
+        raise NotImplementedError(
+            "sharded assembly supports volume terms only — assemble facet terms separately "
+            "and inject (FacetAssembler.injection_into)")
+    mesh = resolve_fem_mesh(mesh, axis_name, plan.device)
+    shard = plan.shard(mesh)
+    is_mat = arity == weakform.MATRIX
+    table = shard.mat_reduce if is_mat else shard.vec_reduce
+    note_signature(plan, ("assemble_sharded", arity, spec, mesh.size, mesh.rank), "assembly",
+                   spec, _N_CORE_TRACES, backend="sharded")
+    c = plan.coords if coords is None else coords
+    t0 = time.perf_counter() if telemetry.is_enabled() else None
+    with annotate("tg.map"):
+        leaves_s = shard_leaves(leaves, plan.num_cells, mesh, shard.block, plan.device)
+        volume = [(kind, coeffs, scale) for kind, _, coeffs, scale in _terms(spec, leaves_s)]
+        local = _volume_map(shard, to_shard(c, mesh, shard.block), volume)
+    with annotate("tg.reduce"):
+        part = seg_reduce(local, table)
+    with annotate("tg.all_reduce"):
+        out = reduce_from_shards(part, mesh)
+    if t0 is not None:
+        _record("assemble_sharded", plan, spec, is_mat, int(c.shape[0]), t0)
+    return out
+
+
+def assemble_sharded(plan: AssemblyPlan, form, mesh: FemMesh | None = None,
+                     axis_name: str | None = None, coords=None) -> CSR:
+    """Element-parallel assembly over the ranks of ``mesh`` (default:
+    :func:`~repro_torch.sharding.fem_mesh` on the plan's device): the
+    element axis of the Map is split into contiguous blocks of ⌈E/P⌉, each
+    rank maps and reduces its block to partial nnz values, and one
+    all-reduce completes the Reduce.  Every rank calls it and gets the
+    whole CSR.  Leaves whose leading axis is the element axis are split,
+    the others replicated.  Matches :func:`assemble` to rounding (on one
+    rank bit for bit).  Volume terms only."""
+    return plan.csr(_sharded_vals(plan, form, weakform.MATRIX, mesh, axis_name, coords))
+
+
+def assemble_rhs_sharded(plan: AssemblyPlan, form, mesh: FemMesh | None = None,
+                         axis_name: str | None = None, coords=None) -> torch.Tensor:
+    """Sharded linear-form assembly → ``(num_dofs,)`` on every rank (see
+    :func:`assemble_sharded`)."""
+    return _sharded_vals(plan, form, weakform.VECTOR, mesh, axis_name, coords)
+
+
 class GalerkinAssembler:
     """The facade over an :class:`AssemblyPlan`: one instance per
     (mesh topology × element × quadrature) signature."""
@@ -610,3 +741,9 @@ class GalerkinAssembler:
     def assemble_rhs_batched(self, form, coords_batch=None,
                              leaves_batch=None) -> torch.Tensor:
         return assemble_rhs_batched(self.plan, form, coords_batch, leaves_batch)
+
+    def assemble_sharded(self, form, mesh: FemMesh | None = None,
+                         axis_name: str | None = None) -> CSR:
+        """Element-parallel assembly over a mesh of ranks — see
+        :func:`assemble_sharded`."""
+        return assemble_sharded(self.plan, form, mesh, axis_name)

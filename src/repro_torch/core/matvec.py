@@ -19,6 +19,10 @@ backend        apply path
 ``matfree``    element-local gather → per-element action → scatter-Reduce
                (B2) with no global values
                (:class:`repro_torch.core.operator.MatFreeOperator`)
+``matfree_``   the same apply split over the element axis of a mesh of
+``sharded``    ranks: each rank's block, then one all-reduce
+               (:class:`repro_torch.core.operator.ShardedMatFreeOperator`;
+               a ``MatFreeOperator`` is sharded over the default mesh)
 =============  =============================================================
 
 Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp,
@@ -27,8 +31,6 @@ Name mapping against ``repro.core.matvec``: there, ``ell`` is plain jnp,
 ``ell_pallas`` both run the broadcast-plan CUDA kernels and ``ell_stream``
 the streaming ones, on CUDA tensors, and their plain versions on CPU
 tensors, so the names of both registries select the same arithmetic.
-``matfree_sharded`` is registered but raises ``NotImplementedError``
-until the sharding slice (ROADMAP A16).
 
 ``make_matvec(op, backend)`` returns the apply closure;
 ``make_residual(op, backend)`` returns ``(u, f) ↦ K·u − f``.  Further
@@ -41,7 +43,7 @@ from typing import Callable
 
 from .. import telemetry
 from ..kernels.ops import ell_matvec, ell_matvec_stream, ell_residual, ell_residual_stream
-from .operator import LinearOperator
+from .operator import LinearOperator, MatFreeOperator, ShardedMatFreeOperator
 from .sparse import CSR, csr_to_ell
 
 __all__ = [
@@ -62,14 +64,14 @@ def _require_csr(op, backend: str) -> CSR:
     return op
 
 
-def _require_matfree(op) -> LinearOperator:
+def _require_matfree(op, backend: str = "matfree") -> LinearOperator:
     if isinstance(op, CSR):
         raise TypeError(
-            "backend 'matfree' needs a matrix-free operator: build one with "
+            f"backend {backend!r} needs a matrix-free operator: build one with "
             "repro_torch.core.matfree_operator(plan, form) instead of assembling"
         )
     if not isinstance(op, LinearOperator):
-        raise TypeError(f"backend 'matfree' needs a LinearOperator, got {type(op).__name__}")
+        raise TypeError(f"backend {backend!r} needs a LinearOperator, got {type(op).__name__}")
     return op
 
 
@@ -110,11 +112,23 @@ def _matfree_residual(op) -> Callable:
     return lambda u, f: mv(u) - f
 
 
-def _matfree_sharded(op) -> Callable:
-    raise NotImplementedError(
-        "matvec backend 'matfree_sharded' is not ported yet: it comes with the "
-        "sharding slice of the torch port (ROADMAP queue A16)"
-    )
+def _as_sharded(op) -> ShardedMatFreeOperator:
+    op = _require_matfree(op, "matfree_sharded")
+    if isinstance(op, ShardedMatFreeOperator):
+        return op
+    if isinstance(op, MatFreeOperator):
+        return op.sharded()
+    raise TypeError("backend 'matfree_sharded' needs a MatFreeOperator (or an already "
+                    f"sharded one), got {type(op).__name__}")
+
+
+def _matfree_sharded_matvec(op) -> Callable:
+    return _as_sharded(op).matvec
+
+
+def _matfree_sharded_residual(op) -> Callable:
+    mv = _as_sharded(op).matvec
+    return lambda u, f: mv(u) - f
 
 
 # name -> (matvec factory, residual factory)
@@ -124,7 +138,7 @@ _BACKENDS: dict[str, tuple[Callable, Callable]] = {
     "ell_pallas": (_ell_matvec, _ell_residual),
     "ell_stream": (_ell_stream_matvec, _ell_stream_residual),
     "matfree": (_matfree_matvec, _matfree_residual),
-    "matfree_sharded": (_matfree_sharded, _matfree_sharded),
+    "matfree_sharded": (_matfree_sharded_matvec, _matfree_sharded_residual),
 }
 
 # the built-in backend names (custom ones appear in matvec_backends())

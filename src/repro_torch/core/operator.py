@@ -1,8 +1,9 @@
 """Matrix-free Galerkin operators: ``y = A(form) @ x`` without CSR values.
 
-The torch port of ``repro.core.operator`` (single-device operators and
-families; the sharded operator is ROADMAP A16).  The operator applies a
-bilinear weak form straight from an :class:`AssemblyPlan`:
+The torch port of ``repro.core.operator``: single operators, their
+element-parallel sharded form (:class:`ShardedMatFreeOperator`) and
+families.  The operator applies a bilinear weak form straight from an
+:class:`AssemblyPlan`:
 
     gather   x_e = x[cell_dofs]            (E, k)
     action   y_e = K_e(form) x_e           per element, torch einsum
@@ -42,6 +43,8 @@ import torch
 
 from .. import telemetry
 from ..kernels.seg_reduce import seg_reduce
+from ..sharding.partitioning import (FemMesh, reduce_from_shards, resolve_fem_mesh,
+                                     shard_leaves, to_shard)
 from ..telemetry import annotate
 from . import forms, weakform
 from .assembly import (AssemblyPlan, _batched_map, _lower_batched, _terms, _volume_map,
@@ -51,6 +54,7 @@ __all__ = [
     "LinearOperator",
     "MatFreeOperator",
     "MatFreeFamily",
+    "ShardedMatFreeOperator",
     "matfree_operator",
     "matfree_family",
     "n_matfree_traces",
@@ -177,6 +181,24 @@ def _is_symmetric(spec) -> bool:
     return all(weakform.KERNELS[kind].symmetric for kind, _, _ in spec)
 
 
+def _masked(free_mask, x, apply):
+    """Dirichlet condensation around an apply: ``m·A(m·x) + (1−m)·x``
+    (``A(x)`` without a mask)."""
+    if free_mask is None:
+        return apply(x)
+    m = free_mask.to(x.dtype)
+    return m * apply(m * x) + (1.0 - m) * x
+
+
+def _masked_diagonal(free_mask, diag):
+    """The diagonal of the condensed operator: a unit diagonal on the
+    constrained rows."""
+    if free_mask is None:
+        return diag
+    m = free_mask.to(diag.dtype)
+    return m * diag + (1.0 - m)
+
+
 # ---------------------------------------------------------------------------
 # The operator
 # ---------------------------------------------------------------------------
@@ -261,16 +283,18 @@ class MatFreeOperator(LinearOperator):
             out = y if out is None else out + y
         return out
 
-    def _apply(self, x, transpose: bool):
-        m = None if self.free_mask is None else self.free_mask.to(x.dtype)
-        x_in = x if m is None else m * x
+    def _scatter_apply(self, x, transpose: bool):
+        """Gather, per-element action, B2 scatter: ``A x`` without the
+        Dirichlet mask."""
         with annotate("tg.matfree.gather"):
-            xe = x_in[self.plan.cell_dofs]
+            xe = x[self.plan.cell_dofs]
         with annotate("tg.matfree.action"):
             y_local = self._local_apply(xe, transpose)
         with annotate("tg.matfree.scatter"):
-            y = reduce_vector(y_local, self.plan)
-        return y if m is None else m * y + (1.0 - m) * x
+            return reduce_vector(y_local, self.plan)
+
+    def _apply(self, x, transpose: bool):
+        return _masked(self.free_mask, x, lambda v: self._scatter_apply(v, transpose))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``y = A x``: gather, per-element action, B2 scatter."""
@@ -301,11 +325,7 @@ class MatFreeOperator(LinearOperator):
     def diagonal(self) -> torch.Tensor:
         """diag(A) by a diagonal-only assembly: per-element diagonals
         reduced onto the dofs (B2 on a CUDA plan), no nnz vector."""
-        diag = reduce_vector(self._diag_local(), self.plan)
-        if self.free_mask is not None:
-            m = self.free_mask.to(diag.dtype)
-            diag = m * diag + (1.0 - m)
-        return diag
+        return _masked_diagonal(self.free_mask, reduce_vector(self._diag_local(), self.plan))
 
     def element_matrices(self) -> torch.Tensor:
         """The per-element tensors ``K_e`` of this form, ``(E, k, k)``:
@@ -319,6 +339,19 @@ class MatFreeOperator(LinearOperator):
     def is_spd(self) -> bool:
         """True when every kernel of the form is declared SPD."""
         return all(weakform.KERNELS[kind].spd for kind, _, _ in self.spec)
+
+    def sharded(self, mesh: FemMesh | None = None,
+                axis_name: str | None = None) -> "ShardedMatFreeOperator":
+        """This operator with its applies split over the element axis of a
+        mesh of ranks (default: :func:`~repro_torch.sharding.fem_mesh` on
+        the plan's device) — see :class:`ShardedMatFreeOperator`.  The
+        rank's block of the plan and its vector Reduce table are built at
+        the first apply, once per plan and mesh."""
+        mesh = resolve_fem_mesh(mesh, axis_name, self.plan.device)
+        note_signature(self.plan, ("matfree_sharded", self.store, self.spec, mesh.size,
+                                   mesh.rank), "matfree", self.spec, _N_MF_TRACES,
+                       backend=f"sharded_{self.store}")
+        return ShardedMatFreeOperator(self, mesh)
 
     def state_bytes(self) -> int:
         """Bytes of state this operator carries beyond the plan (a
@@ -370,6 +403,103 @@ def matfree_operator(plan: AssemblyPlan, form, store: str = "context",
 
 
 # ---------------------------------------------------------------------------
+# Element-parallel sharding: the same gather → action → scatter apply, with
+# the element axis split over a mesh of ranks (a partial scatter a rank and
+# one all-reduce)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedMatFreeOperator(LinearOperator):
+    """A :class:`MatFreeOperator` whose applies are split over the element
+    axis of a :class:`~repro_torch.sharding.FemMesh`.
+
+    Per apply, each rank gathers from the replicated ``(n,)`` vector into
+    its own element block only, runs the per-element action on that
+    block, reduces it with B2 on its block's table to a partial vector, and
+    one all-reduce completes the Sparse-Reduce: the gather, the action's
+    (E, Q, ...) state and the local results exist only as the rank's
+    block.  ``matvec`` / ``rmatvec`` / ``diagonal`` all split so, and the
+    Dirichlet mask runs on the replicated vector, so
+    :func:`~repro_torch.core.solvers.matfree_solve` (and its adjoint solve
+    and operator pullback) runs sharded end to end, with every rank
+    calling it.  :meth:`traced` and :meth:`with_traced` take the *whole*
+    tensors of the wrapped operator: a rank's block enters its apply
+    through :func:`~repro_torch.sharding.to_shard`, whose backward
+    all-reduces, so every rank gets the whole gradient.  Build with
+    :meth:`MatFreeOperator.sharded`."""
+
+    op: MatFreeOperator
+    mesh: FemMesh
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.op.shape
+
+    def condensed(self, bc) -> "ShardedMatFreeOperator":
+        """Dirichlet condensation, the same apply wrapper as the single
+        operator's (it runs on the replicated vector)."""
+        return dataclasses.replace(self, op=self.op.condensed(bc))
+
+    def traced(self) -> tuple[torch.Tensor, ...]:
+        return self.op.traced()
+
+    def with_traced(self, tensors) -> "ShardedMatFreeOperator":
+        return dataclasses.replace(self, op=self.op.with_traced(tensors))
+
+    def state_bytes(self) -> int:
+        return self.op.state_bytes()
+
+    def _block(self) -> MatFreeOperator:
+        """The rank's block of the operator, on the plan's
+        :class:`~repro_torch.core.assembly.PlanShard`: its block of the
+        coordinates, context or element matrices and of the per-element
+        leaves (through ``to_shard``), the other leaves whole, no mask."""
+        op, mesh = self.op, self.mesh
+        shard = op.plan.shard(mesh)
+        lo, hi = shard.block
+
+        def cut(t):
+            return None if t is None else to_shard(t, mesh, (lo, hi))
+
+        ctx = op.ctx
+        if ctx is not None:
+            scd = ctx.scalar_cell_dofs
+            ctx = dataclasses.replace(ctx, detj=cut(ctx.detj), grad=cut(ctx.grad), xq=cut(ctx.xq),
+                                      scalar_cell_dofs=None if scd is None else scd[lo:hi])
+        return dataclasses.replace(
+            op, plan=shard, coords=cut(op.coords), ctx=ctx, k_local=cut(op.k_local),
+            leaves=shard_leaves(op.leaves, op.plan.num_cells, mesh, (lo, hi), shard.device),
+            free_mask=None)
+
+    def _apply(self, x, transpose: bool):
+        def apply(v):
+            part = self._block()._scatter_apply(to_shard(v, self.mesh), transpose)
+            with annotate("tg.matfree.all_reduce"):
+                return reduce_from_shards(part, self.mesh)
+
+        return _masked(self.op.free_mask, x, apply)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x``: the rank's gather, action and B2 scatter, then one
+        all-reduce."""
+        return self._apply(x, False)
+
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = Aᵀ x`` (kernels declared ``symmetric`` reuse the forward
+        action)."""
+        op = self.op
+        return self._apply(x, not (op.k_local is None and _is_symmetric(op.spec)))
+
+    def diagonal(self) -> torch.Tensor:
+        """diag(A) by a sharded diagonal-only assembly: the rank's element
+        diagonals reduced (B2), then one all-reduce."""
+        block = self._block()
+        part = reduce_vector(block._diag_local(), block.plan)
+        with annotate("tg.matfree.all_reduce"):
+            return _masked_diagonal(self.op.free_mask, reduce_from_shards(part, self.mesh))
+
+
+# ---------------------------------------------------------------------------
 # Batched families: B same-signature operators on one shared plan
 # ---------------------------------------------------------------------------
 
@@ -418,13 +548,10 @@ class MatFreeFamily(LinearOperator):
         # the kernel reads (B, n_src) rows in place: a strided view must be copied
         return seg_reduce(local.contiguous(), self.op.plan.vec_reduce, batch=True)
 
-    def _apply(self, x, transpose: bool):
+    def _scatter_apply(self, xb, transpose: bool):
         op = self.op
-        xb = x if x.dim() == 2 else x.expand(self.batch, -1)
-        m = None if op.free_mask is None else op.free_mask.to(x.dtype)
-        x_in = xb if m is None else m * xb
         with annotate("tg.matfree.gather"):
-            xe = x_in[:, op.plan.cell_dofs]
+            xe = xb[:, op.plan.cell_dofs]
         with annotate("tg.matfree.action"):
             if self.k_local_ax == 0:
                 sub = "neab,nea->neb" if transpose else "neab,neb->nea"
@@ -433,8 +560,11 @@ class MatFreeFamily(LinearOperator):
                 y_local = torch.stack([self[b]._local_apply(xe[b], transpose)
                                        for b in range(self.batch)])
         with annotate("tg.matfree.scatter"):
-            y = self._reduce(y_local)
-        return y if m is None else m * y + (1.0 - m) * xb
+            return self._reduce(y_local)
+
+    def _apply(self, x, transpose: bool):
+        xb = x if x.dim() == 2 else x.expand(self.batch, -1)
+        return _masked(self.op.free_mask, xb, lambda v: self._scatter_apply(v, transpose))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``Y_b = A_b @ x_b`` for ``x (B, n)`` (an ``(n,)`` x is shared)."""
@@ -451,11 +581,7 @@ class MatFreeFamily(LinearOperator):
             local = torch.diagonal(self.op.k_local, dim1=-2, dim2=-1)
         else:
             local = torch.stack([self[b]._diag_local() for b in range(self.batch)])
-        diag = self._reduce(local)
-        if self.op.free_mask is not None:
-            m = self.op.free_mask.to(diag.dtype)
-            diag = m * diag + (1.0 - m)
-        return diag
+        return _masked_diagonal(self.op.free_mask, self._reduce(local))
 
     def state_bytes(self) -> int:
         return self.op.state_bytes()

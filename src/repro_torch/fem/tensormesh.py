@@ -5,7 +5,10 @@ space → assembler → condenser) and expose:
 
 * ``solve()`` — assembly plus a preconditioned Krylov solve; with
   ``backend="matfree"`` only the load is assembled and the Krylov loop
-  applies the form matrix-free (gather, per-element action, B2 scatter);
+  applies the form matrix-free (gather, per-element action, B2 scatter),
+  and with ``backend="matfree_sharded"`` every apply (the Jacobi
+  diagonal and the right-hand-side lift too) is split over the ranks of
+  the default mesh (:class:`~repro_torch.core.ShardedMatFreeOperator`);
 * ``PoissonProblem.solve_batch(fs)`` — many-query batched right-hand sides
   (SM B.1.4): the matrix assembled once, the B loads in one batched
   assembly, one CG solve per instance;
@@ -55,6 +58,10 @@ __all__ = [
     "ElasticityProblem",
     "MixedBCPoisson",
 ]
+
+
+# the backends that apply the form matrix-free (only the load is assembled)
+_MATFREE = ("matfree", "matfree_sharded")
 
 
 @dataclasses.dataclass
@@ -121,22 +128,28 @@ class _ProblemBase:
         return (res, info) if return_info else res
 
     def _solve_matfree(self, form, load, spec: SolverSpec, dirichlet_values=0.0,
-                       return_info=False, store="context", condensed=False):
+                       return_info=False, store="context", condensed=False, sharded=False):
         """Matrix-free Krylov solve: the operator applies ``form`` straight
         from the plan (:func:`~repro_torch.core.matfree_operator`, ``store``
         its memory/speed point), Jacobi from a diagonal-only assembly,
         Dirichlet condensation as an apply wrapper; the right-hand-side lift
         runs one apply of the uncondensed operator.  No global values are
-        formed.  ``condensed=True`` statically condenses the edge DoFs of a
-        P2 space and iterates on the vertex Schur complement.  (For a
-        differentiable solve use :func:`~repro_torch.core.matfree_solve` or
+        formed.  ``sharded=True`` splits every apply (the Jacobi diagonal
+        and the lift too) over the ranks of the default mesh, so one Krylov
+        solve spans them all (every rank calls it).  ``condensed=True``
+        statically condenses the edge DoFs of a P2 space and iterates on
+        the vertex Schur complement.  (For a differentiable solve use
+        :func:`~repro_torch.core.matfree_solve` or
         :func:`~repro_torch.core.condensed_solve` on the same operator.)"""
         op_full = matfree_operator(self.plan, form, store=store)
+        if sharded:
+            op_full = op_full.sharded()
         if isinstance(dirichlet_values, (int, float)) and dirichlet_values == 0.0:
             f = self.bc.project_residual(load)  # homogeneous: the lift is a mask
         else:
             f = self.bc.lift(op_full, load, dirichlet_values)
-        return self._solve_system(op_full.condensed(self.bc), f, spec, backend="matfree",
+        return self._solve_system(op_full.condensed(self.bc), f, spec,
+                                  backend="matfree_sharded" if sharded else "matfree",
                                   return_info=return_info, condensed=condensed)
 
 
@@ -156,19 +169,22 @@ class PoissonProblem(_ProblemBase):
         ``maxiter=`` kwargs still work but are deprecated).  ``backend``
         names the Krylov matvec and residual of the registry: ``"ell"``
         (default, broadcast-plan kernels), ``"ell_stream"`` (streaming
-        kernels), ``"csr"``, or ``"matfree"`` (no matrix assembly: only the
+        kernels), ``"csr"``, ``"matfree"`` (no matrix assembly: only the
         load is assembled, and ``store`` picks the matrix-free operator's
-        store).  ``condensed=True`` (``matfree``, P2) runs the Krylov
-        iteration on the statically condensed interface system.
+        store), or ``"matfree_sharded"`` (``matfree`` with every apply
+        split over the ranks of the default mesh).  ``condensed=True``
+        (matrix-free backends, P2) runs the Krylov iteration on the
+        statically condensed interface system.
         ``return_info=True`` appends the raw
         :class:`~repro_torch.core.SolveInfo`."""
         spec = self._spec(spec, tol, maxiter, "solve")
-        if backend == "matfree":
+        if backend in _MATFREE:
             load = self.asm.assemble_rhs(wf.source(f))
             return self._solve_matfree(wf.diffusion(rho), load, spec, return_info=return_info,
-                                       store=store, condensed=condensed)
+                                       store=store, condensed=condensed,
+                                       sharded=backend == "matfree_sharded")
         if condensed:
-            raise ValueError("condensed=True needs the matfree backend")
+            raise ValueError("condensed=True needs a matfree backend")
         k, load = self.assemble(rho, f)
         return self._solve_system(k, load, spec, backend=backend, return_info=return_info)
 
@@ -230,11 +246,12 @@ class AdvectionDiffusionProblem(_ProblemBase):
               spec: SolverSpec | None = None, tol=None, maxiter=None,
               backend=None, return_info=False):
         spec = self._spec(spec, tol, maxiter, "solve")
-        if backend == "matfree":
+        if backend in _MATFREE:
             form = wf.diffusion(eps) + wf.advection(self._beta(beta))
             load = self.asm.assemble_rhs(wf.source(f))
             return self._solve_matfree(form, load, spec, dirichlet_values=dirichlet_values,
-                                       return_info=return_info)
+                                       return_info=return_info,
+                                       sharded=backend == "matfree_sharded")
         k, load = self.assemble(eps, beta, f, dirichlet_values)
         return self._solve_system(k, load, spec, backend=backend, return_info=return_info)
 
@@ -267,10 +284,11 @@ class ElasticityProblem(_ProblemBase):
     def solve(self, body_force=None, spec: SolverSpec | None = None,
               tol=None, maxiter=None, backend=None, return_info=False):
         spec = self._spec(spec, tol, maxiter, "solve")
-        if backend == "matfree":
+        if backend in _MATFREE:
             load = self.asm.assemble_rhs(wf.source(self._body_force(body_force)))
             return self._solve_matfree(wf.elasticity(self.lam, self.mu), load, spec,
-                                       return_info=return_info)
+                                       return_info=return_info,
+                                       sharded=backend == "matfree_sharded")
         k, f = self.assemble(body_force)
         return self._solve_system(k, f, spec, backend=backend, return_info=return_info)
 
@@ -323,7 +341,7 @@ class MixedBCPoisson(_ProblemBase):
               spec: SolverSpec | None = None, tol=None, maxiter=None,
               backend=None, return_info=False):
         spec = self._spec(spec, tol, maxiter, "solve")
-        if backend in ("matfree", "matfree_sharded"):
+        if backend in _MATFREE:
             raise NotImplementedError(
                 "MixedBCPoisson has Robin facet terms, which the matrix-free "
                 "apply does not support (volume terms only) — use an "

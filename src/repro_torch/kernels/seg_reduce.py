@@ -129,6 +129,18 @@ class ReduceTable:
         return cls(routing.perm, t[routing.seg_ids], t[routing.seg_ids_unsorted],
                    routing.num_dofs, device)
 
+    @classmethod
+    def for_slot_range(cls, rows_unsorted: np.ndarray, lo: int, hi: int, n_rows: int,
+                       device) -> "ReduceTable":
+        """The Reduce of the local slots ``lo .. hi-1`` alone onto all
+        ``n_rows`` rows (a rank's element block × its slots), from each
+        slot's global row ``rows_unsorted``: the slots stably sorted by
+        row, so each row sums its slots in increasing slot order, as the
+        whole routing's table does."""
+        rows = rows_unsorted[lo:hi]
+        perm = np.argsort(rows, kind="stable")
+        return cls(perm, rows[perm], rows, n_rows, device)
+
     def drop_mirrors(self) -> None:
         """Release the lazily staged row ids (staged again at next use)."""
         self._rows = None

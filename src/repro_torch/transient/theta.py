@@ -15,7 +15,9 @@ backends (``"ell"``, ``"ell_pallas"``, ``"ell_stream"``) run the inner
 matvecs through the registry's kernels in a plain Krylov loop warm-started
 at uⁿ: the fast forward path.  ``"matfree"`` steps on matrix-free
 operators (:meth:`ThetaIntegrator.from_form`) through the differentiable
-:func:`~repro_torch.core.matfree_solve`: no CSR values are formed.
+:func:`~repro_torch.core.matfree_solve`: no CSR values are formed;
+``"matfree_sharded"`` splits both operators' applies over a mesh of ranks
+(:class:`~repro_torch.core.ShardedMatFreeOperator`).
 Dirichlet data may vary per step: the condensed operator is formed once
 and only the right-hand-side lift runs in the loop.
 """
@@ -28,7 +30,7 @@ import torch
 
 from ..core.boundary import DirichletCondenser
 from ..core.matvec import make_matvec
-from ..core.operator import MatFreeOperator, matfree_operator
+from ..core.operator import MatFreeOperator, ShardedMatFreeOperator, matfree_operator
 from ..core.solvers import (
     SolverSpec,
     _method,
@@ -47,7 +49,8 @@ BACKWARD_EULER = 1.0
 CRANK_NICOLSON = 0.5
 
 # backends whose step is a differentiable solve on the integrator's operators
-_SOLVE_BACKENDS = ("csr", "matfree")
+_SOLVE_BACKENDS = ("csr", "matfree", "matfree_sharded")
+_MATFREE_BACKENDS = ("matfree", "matfree_sharded")
 
 
 @dataclasses.dataclass
@@ -62,9 +65,10 @@ class ThetaIntegrator:
     side and the Krylov matvecs through that backend, warm-started at the
     previous state (forward only).  ``"matfree"`` (build with
     :meth:`from_form`) steps on matrix-free operators through the
-    differentiable :func:`~repro_torch.core.matfree_solve`.
-    ``"matfree_sharded"`` is not ported yet and raises
-    ``NotImplementedError``."""
+    differentiable :func:`~repro_torch.core.matfree_solve`, and
+    ``"matfree_sharded"`` shards both matrix-free operators over the
+    default mesh of ranks (:meth:`MatFreeOperator.sharded`), so every
+    step's solve and its adjoint span the mesh (every rank steps)."""
 
     mass: CSR | None
     stiff: CSR | None
@@ -78,14 +82,10 @@ class ThetaIntegrator:
     backend: str = "csr"
     # effective operators; pass directly (see from_form) or leave None to
     # have them formed from mass/stiff (same pattern as M / K)
-    lhs_full: CSR | MatFreeOperator | None = None
-    rhs_op: CSR | MatFreeOperator | None = None
+    lhs_full: CSR | MatFreeOperator | ShardedMatFreeOperator | None = None
+    rhs_op: CSR | MatFreeOperator | ShardedMatFreeOperator | None = None
 
     def __post_init__(self):
-        if self.backend == "matfree_sharded":
-            raise NotImplementedError(
-                "ThetaIntegrator(backend='matfree_sharded') is not ported yet: it comes "
-                "with the sharded matrix-free operators (ROADMAP queue A16)")
         # M + θΔtK is SPD for θ ≥ 0 → CG default
         self.spec = resolve_solver_spec(
             self.spec, method=self.solver, tol=self.tol, atol=self.tol,
@@ -98,6 +98,11 @@ class ThetaIntegrator:
             self.lhs_full = axpy_csr(1.0, self.mass, self.theta * self.dt, self.stiff)
         if self.rhs_op is None:
             self.rhs_op = axpy_csr(1.0, self.mass, -(1.0 - self.theta) * self.dt, self.stiff)
+        if self.backend == "matfree_sharded":
+            if isinstance(self.lhs_full, MatFreeOperator):
+                self.lhs_full = self.lhs_full.sharded()
+            if isinstance(self.rhs_op, MatFreeOperator):
+                self.rhs_op = self.rhs_op.sharded()
         if self.bc is None:
             self.lhs = self.lhs_full
         elif isinstance(self.lhs_full, CSR):
@@ -118,7 +123,8 @@ class ThetaIntegrator:
         advection term makes the lhs nonsymmetric, so the solver then
         defaults to BiCGSTAB (CG otherwise).  With ``backend="matfree"``
         both are matrix-free operators
-        (:func:`~repro_torch.core.matfree_operator`) instead."""
+        (:func:`~repro_torch.core.matfree_operator`) instead, sharded with
+        ``backend="matfree_sharded"``."""
         from ..core import weakform as wf
 
         terms = wf._as_form(form).terms
@@ -127,7 +133,7 @@ class ThetaIntegrator:
                 method="bicgstab" if any(t.kind == "advection" for t in terms) else "cg")
         lhs_form = wf.mass(mass_coeff) + (theta * dt) * form
         rhs_form = wf.mass(mass_coeff) + (-(1.0 - theta) * dt) * form
-        if kw.get("backend") == "matfree":
+        if kw.get("backend") in _MATFREE_BACKENDS:
             lhs, rhs = matfree_operator(asm.plan, lhs_form), matfree_operator(asm.plan, rhs_form)
         else:
             lhs, rhs = asm.assemble(lhs_form), asm.assemble(rhs_form)
@@ -152,7 +158,7 @@ class ThetaIntegrator:
             b = self.bc.lift(self.lhs_full, b, bc_values)
         if self.backend == "csr":
             return sparse_solve(self.lhs, b, self.spec, return_info=return_info)
-        if self.backend == "matfree":
+        if self.backend in _MATFREE_BACKENDS:
             return matfree_solve(self.lhs, b, self.spec, return_info=return_info)
         u_new, info = _method(self.spec.method)(
             self._lhs_mv, b, x0=u, tol=self.spec.tol, atol=self.spec.atol,

@@ -167,8 +167,11 @@ def test_registry_matfree_backend():
         tc.make_matvec(k, "matfree")
     with pytest.raises(TypeError, match="assembled CSR"):
         tc.make_matvec(op, "ell")
-    with pytest.raises(NotImplementedError, match="A16"):
-        tc.make_matvec(op, "matfree_sharded")
+    # the sharded backend shards the operator over the one-rank mesh: the same apply
+    torch.testing.assert_close(tc.make_matvec(op, "matfree_sharded")(x), op.matvec(x),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(tc.make_residual(op, "matfree_sharded")(x, f),
+                               tc.make_residual(op, "matfree")(x, f), atol=0, rtol=0)
 
 
 def test_cached_diagonal_keys_on_the_operator_tensors():
@@ -308,8 +311,9 @@ def test_problem_matfree_matches_jax(name, store):
 
 def test_problem_matfree_equals_assembled_and_condensed_raises():
     """The matrix-free solve equals the assembled one; so does the
-    statically condensed solve on a P2 mesh (``condensed=True``); the
-    sharded backend still raises naming A16."""
+    statically condensed solve on a P2 mesh (``condensed=True``); so does
+    the sharded backend on the one-rank mesh, bit for bit and in as many
+    iterations as ``matfree``."""
     prob = ttm.PoissonProblem(tc.unit_cube_tet(3), device="cpu")
     mf = prob.solve(backend="matfree")
     torch.testing.assert_close(mf.u, prob.solve(backend="csr").u, atol=1e-10, rtol=0)
@@ -317,8 +321,9 @@ def test_problem_matfree_equals_assembled_and_condensed_raises():
     spec = tc.SolverSpec(**SPEC)
     cond = p2.solve(backend="matfree", condensed=True, spec=spec)
     torch.testing.assert_close(cond.u, p2.solve(backend="csr", spec=spec).u, atol=1e-10, rtol=0)
-    with pytest.raises(NotImplementedError, match="A16"):
-        prob.solve(backend="matfree_sharded")
+    sharded = prob.solve(backend="matfree_sharded")
+    torch.testing.assert_close(sharded.u, mf.u, atol=0, rtol=0)
+    assert sharded.iters == mf.iters
 
 
 # ---------------------------------------------------------------------------

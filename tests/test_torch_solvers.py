@@ -117,7 +117,7 @@ def test_matvec_registry():
         torch.testing.assert_close(tc.make_matvec(k, backend)(x), want, atol=1e-13, rtol=0)
         torch.testing.assert_close(tc.make_residual(k, backend)(x, f), want - f,
                                    atol=1e-13, rtol=0)
-    # matfree runs a matrix-free operator (not an assembled one); matfree_sharded is A16
+    # matfree and matfree_sharded run a matrix-free operator (not an assembled one)
     m = tc.unit_square_tri(4)
     plan = tc.build_plan(tc.FunctionSpace(m, tc.element_for_mesh(m)), device="cpu")
     op = tc.matfree_operator(plan, tc.weakform.diffusion(1.5))
@@ -128,8 +128,10 @@ def test_matvec_registry():
                                atol=1e-13, rtol=0)
     with pytest.raises(TypeError, match="matrix-free operator"):
         tc.make_matvec(k, "matfree")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="matrix-free"):
         tc.make_matvec(k, "matfree_sharded")
+    torch.testing.assert_close(tc.make_matvec(op, "matfree_sharded")(xm), want_m, atol=1e-13,
+                               rtol=0)
     with pytest.raises(ValueError):
         tc.make_matvec(k, "nope")
     tc.register_matvec_backend("double_test", lambda op: (lambda v: 2 * op.matvec(v)),

@@ -242,15 +242,17 @@ def test_axpy_and_converted_operators_share_one_pattern():
 
 
 def test_matfree_backends_are_not_ported_yet():
-    # matfree is ported (A9): on assembled operators it steps through
-    # matfree_solve, equal to the csr rollout; matfree_sharded is A16
+    # (the name is kept from before the sharded backend was ported) on
+    # assembled operators both matrix-free backends step through
+    # matfree_solve (sparse_solve's adjoint on a CSR), equal to the csr
+    # rollout; the sharded backend shards only matrix-free operators
     _, (tasm, tbc, tmass, tstiff), u0 = _setup("tri8")
     u0 = torch.as_tensor(u0)
-    traj = ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="matfree").rollout(u0, 3)
     want = ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="csr").rollout(u0, 3)
-    torch.testing.assert_close(traj, want, atol=1e-14, rtol=0)
-    with pytest.raises(NotImplementedError, match="A16"):
-        ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend="matfree_sharded")
+    for backend in ("matfree", "matfree_sharded"):
+        integ = ThetaIntegrator(tmass, tstiff, 0.01, bc=tbc, backend=backend)
+        assert isinstance(integ.lhs_full, tc.CSR)
+        torch.testing.assert_close(integ.rollout(u0, 3), want, atol=1e-14, rtol=0)
 
 
 def test_rollout_info_feeds_telemetry():
