@@ -157,9 +157,24 @@ Phases, one JSON line each:
    one B2 and one all-reduce a rank (its gather, action, B2 and
    all-reduce timed, and each rank's device memory read); four ranks on
    gloo at unit_cube_tet(9), whose 4,374 elements split unevenly;
-21. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+21. lm — the LM harness's dense decoder family (A17a): the five ported
+   architectures (qwen3-4b, qwen3-32b, deepseek-67b, nemotron-4-340b,
+   internvl2-26b) at smoke width in float32 on numpy-drawn parameters
+   against pinned JAX numbers (the loss, 3 optimizer steps, prefill and
+   decode logits; 1e-4 relative); qwen3-4b served at full width (36
+   layers, bfloat16 weights, tp_degree 1): 4 prompts of 512 tokens and 32
+   greedy decode steps (finite logits; at depth 4 in float32 the decode
+   logits against a full forward within 2e-2), prefill and decode times
+   and peak memory; qwen3-4b trained at full width and depth 8 (AdamW,
+   8 × 512 tokens in two microbatches, remat, 20 steps: finite losses and
+   grad norms, the last 5 losses below the first 5, a fifth of the card
+   left free), step time, tokens/s and model FLOPs; the launcher at
+   ``--smoke`` with checkpoints every 10 steps, relaunched from 20 to 35;
+   and what float32 results of bfloat16 contractions cost.  The path
+   launches none of B1-B6;
+22. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-22. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+23. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -181,7 +196,7 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``quickstart`` and
+``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``lm``, ``quickstart`` and
 ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
@@ -1739,7 +1754,7 @@ def _solve_u_eq_x(prob):
     return res, err
 
 
-OPEN_TRACE_PAD = 256
+OPEN_TRACE_PAD = 1024
 
 
 def _open_trace() -> None:
@@ -1748,8 +1763,9 @@ def _open_trace() -> None:
     device records of its first few kernels, however long it waits before
     them: 5 in most traces after the mixed-BC, elasticity and batched
     phases, up to 59, none or 2 in a fresh process (``--only
-    trace_drops``).  The pad's kernels take that loss, so that the
-    launches to count are not among the first."""
+    trace_drops``), and once 258 (a serve capture in a full run).  The
+    pad's kernels take that loss, so that the launches to count are not
+    among the first."""
     for _ in range(OPEN_TRACE_PAD):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
@@ -3889,6 +3905,512 @@ def phase_sharded():
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm: the LM harness's dense decoder family (A17a)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-4b", "qwen3-32b", "deepseek-67b", "nemotron-4-340b", "internvl2-26b")
+LM_PIN_SEED = 0
+LM_PIN_SHAPE = (2, 16)                 # batch, text tokens
+LM_PIN_TRAIN = {"lr": 1e-3, "warmup": 1, "total_steps": 10}
+LM_PIN_STEPS = 3
+LM_PIN_LOGITS = 8                      # logits[:, 0, :8] of each row are pinned
+LM_PIN_TOL = 1e-4                      # relative, on the card and in the CPU test
+# The decode step reads the bfloat16 cache and rounds p to bfloat16 before
+# P·V, as the reference does: a last-bit difference in a float32 k, v or p
+# between the card and the CPU can move such an entry by one bfloat16 ulp,
+# so the card's decode logits are held to JAX's within one bfloat16 ulp
+# (2^-8) of scale, and to the port's CPU decode from the card's own cache
+# within LM_PIN_TOL.
+LM_PIN_DECODE_TOL = 2.0 ** -8
+# The JAX package's numbers on the pin cases (``lm_pin_case``), measured on
+# the CPU: the loss, the loss and grad norm of each of 3 optimizer steps on
+# the same batch (the step's loss is taken before its update), the loss
+# after them, and the prefill / one-decode-step logits (the first 8 of each
+# row and the norm over the real vocabulary).
+JAX_LM_PINS = {
+    "qwen3-4b": {
+        "loss": 5.901381969451904, "final_loss": 3.7568225860595703,
+        "step_losses": [5.901381969451904, 5.014453411102295, 4.319572925567627],
+        "step_grad_norms": [7.7017011642456055, 6.379878997802734, 6.08925199508667],
+        "prefill": {"norm": 21.288331471563833, "head": [
+            0.07698269933462143, 0.12820182740688324, -0.8348533511161804, 0.011488699354231358,
+            1.3610143661499023, -0.6728768944740295, -0.6784833073616028, 1.2900500297546387,
+            -0.16334980726242065, 0.5081207752227783, -1.0115400552749634, 0.2688653767108917,
+            0.29161378741264343, -0.2475825548171997, 0.3618781268596649, 0.7262352705001831,
+        ]},
+        "decode": {"norm": 21.88612402162556, "head": [
+            -0.5073102712631226, 0.31808701157569885, -0.8942578434944153, 0.4472994804382324,
+            0.46658164262771606, -0.43989571928977966, -0.9117133021354675, 0.7130260467529297,
+            0.0424654521048069, -0.7116301655769348, 2.1440463066101074, -0.09954910725355148,
+            0.582161545753479, 1.8864554166793823, 0.5025530457496643, -0.2919577658176422,
+        ]},
+    },
+    "qwen3-32b": {
+        "loss": 5.901381969451904, "final_loss": 3.7568225860595703,
+        "step_losses": [5.901381969451904, 5.014453411102295, 4.319572925567627],
+        "step_grad_norms": [7.7017011642456055, 6.379878997802734, 6.08925199508667],
+        "prefill": {"norm": 21.288331471563833, "head": [
+            0.07698269933462143, 0.12820182740688324, -0.8348533511161804, 0.011488699354231358,
+            1.3610143661499023, -0.6728768944740295, -0.6784833073616028, 1.2900500297546387,
+            -0.16334980726242065, 0.5081207752227783, -1.0115400552749634, 0.2688653767108917,
+            0.29161378741264343, -0.2475825548171997, 0.3618781268596649, 0.7262352705001831,
+        ]},
+        "decode": {"norm": 21.88612402162556, "head": [
+            -0.5073102712631226, 0.31808701157569885, -0.8942578434944153, 0.4472994804382324,
+            0.46658164262771606, -0.43989571928977966, -0.9117133021354675, 0.7130260467529297,
+            0.0424654521048069, -0.7116301655769348, 2.1440463066101074, -0.09954910725355148,
+            0.582161545753479, 1.8864554166793823, 0.5025530457496643, -0.2919577658176422,
+        ]},
+    },
+    "deepseek-67b": {
+        "loss": 5.966094493865967, "final_loss": 3.7213246822357178,
+        "step_losses": [5.966094493865967, 5.040828704833984, 4.306770324707031],
+        "step_grad_norms": [7.734354496002197, 6.729176998138428, 6.615397930145264],
+        "prefill": {"norm": 21.329010548586403, "head": [
+            -0.010750778950750828, 0.5254642963409424, -0.536795973777771, 0.448494553565979,
+            1.1846648454666138, -0.4837603271007538, -0.9497647285461426, 1.3569540977478027,
+            0.24461010098457336, 0.8563153743743896, -0.4558897912502289, 0.25550439953804016,
+            0.16654668748378754, 0.2180889993906021, -0.03067731484770775, 0.34061214327812195,
+        ]},
+        "decode": {"norm": 21.51506833873277, "head": [
+            -0.5327645540237427, 0.2994299530982971, -0.7007169723510742, 0.4592343866825104,
+            0.47033578157424927, -0.2268950343132019, -1.0909688472747803, 0.7448234558105469,
+            0.3173823058605194, -0.11100072413682938, 1.5236085653305054, 0.14551421999931335,
+            0.21555599570274353, 1.2813743352890015, 0.666973888874054, -0.35803139209747314,
+        ]},
+    },
+    "nemotron-4-340b": {
+        "loss": 5.819390296936035, "final_loss": 3.2707228660583496,
+        "step_losses": [5.819390296936035, 4.759725093841553, 3.908400058746338],
+        "step_grad_norms": [7.526327610015869, 6.085470676422119, 5.173087120056152],
+        "prefill": {"norm": 22.954579219792834, "head": [
+            -1.9203100204467773, 0.4065743386745453, 1.5026620626449585, 1.1747066974639893,
+            1.4484752416610718, 0.08590462803840637, -1.2385281324386597, 1.2431092262268066,
+            -0.11211106926202774, -1.3345537185668945, 0.21348021924495697, -1.8493294715881348,
+            0.6725641489028931, 0.07734557241201401, 0.5322287678718567, -0.24560312926769257,
+        ]},
+        "decode": {"norm": 22.52722944386327, "head": [
+            -1.0071200132369995, -1.6009736061096191, 0.30737876892089844, -0.47637781500816345,
+            0.8054092526435852, 2.3677492141723633, -0.8613043427467346, 1.9459081888198853,
+            -0.368901789188385, -0.9774875640869141, -0.3351723551750183, -1.7527365684509277,
+            0.6810330152511597, 0.7765281200408936, 1.3487484455108643, -0.41192227602005005,
+        ]},
+    },
+    "internvl2-26b": {
+        "loss": 6.013975143432617, "final_loss": 3.681288719177246,
+        "step_losses": [6.013975143432617, 4.929405212402344, 4.212551116943359],
+        "step_grad_norms": [8.189508438110352, 5.872615337371826, 5.171969413757324],
+        "prefill": {"norm": 23.304532227860637, "head": [
+            -0.07203083485364914, 2.067119836807251, 1.2955552339553833, 1.2562320232391357,
+            1.4111764430999756, -0.9587210416793823, -0.30494433641433716, 1.032596230506897,
+            -0.24706973135471344, -0.8248146772384644, 0.09129785746335983, -0.2506009042263031,
+            1.8127670288085938, 0.9977678060531616, 1.1731551885604858, 1.7137551307678223,
+        ]},
+        "decode": {"norm": 22.513776082843574, "head": [
+            -0.7224345207214355, 1.1829649209976196, -0.09421131759881973, 1.3884540796279907,
+            0.5257292985916138, 0.5783681869506836, 0.5128270983695984, 1.1808069944381714,
+            -0.9319416880607605, -0.3112335503101349, -0.2411395162343979, -0.3878796696662903,
+            0.22397427260875702, 0.9808418154716492, 1.6688140630722046, 0.9667549133300781,
+        ]},
+    },
+}
+
+
+def lm_pin_overrides(arch: str) -> dict:
+    """The smoke config's overrides for the pins: float32 compute, and two
+    microbatches for nemotron-4 (its bfloat16 gradient accumulation)."""
+    kw = {"compute_dtype": "float32"}
+    if arch == "nemotron-4-340b":
+        kw["microbatches"] = {"pin": 2}
+    return kw
+
+
+def lm_pin_case(arch: str):
+    """(config, numpy parameters at the reference's law, numpy batch): the
+    inputs that the port here and the JAX package in the CPU test share."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import numpy_params
+
+    cfg = dataclasses.replace(smoke_variant(ARCHS[arch]), **lm_pin_overrides(arch))
+    params = numpy_params(build_model(cfg).param_specs(), LM_PIN_SEED)
+    rng = np.random.default_rng(LM_PIN_SEED + 1)
+    b, s = LM_PIN_SHAPE
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.frontend == "patch_embed":
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return cfg, params, batch
+
+
+def lm_pin_summary(logits) -> dict:
+    """The pinned part of (B, 1, V) logits, from a host float array."""
+    return {"head": [float(x) for x in logits[:, 0, :LM_PIN_LOGITS].reshape(-1)],
+            "norm": float(np.linalg.norm(logits[:, 0].astype(np.float64)))}
+
+
+def lm_pin_run(arch: str, device: str) -> dict:
+    """The pin quantities of ``arch`` computed by the port on ``device``."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg, host, hbatch = lm_pin_case(arch)
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in hbatch.items()}
+    out = {}
+    with torch.no_grad():
+        params = lm_params_from_numpy(host, device)
+        out["loss"] = float(model.loss(params, batch))
+        b, s = LM_PIN_SHAPE
+        n_img = cfg.num_frontend_tokens if cfg.frontend == "patch_embed" else 0
+        prompt = {k: (v[:, : s - 1] if k == "tokens" else v)
+                  for k, v in batch.items() if k != "labels"}
+        logits, cache = model.prefill(params, prompt, s + n_img)
+        out["prefill"] = lm_pin_summary(logits.cpu().numpy())
+        dbatch = {"tokens": batch["tokens"][:, s - 1:], "cache_len": s - 1 + n_img}
+        if device != "cpu":     # the same decode on the host from this cache
+            on_host = {k: v.cpu() for k, v in cache.items()}
+            logits, _ = model.decode(lm_params_from_numpy(host, "cpu"),
+                                     {"tokens": dbatch["tokens"].cpu(),
+                                      "cache_len": dbatch["cache_len"]}, on_host)
+            out["decode_host_same_cache"] = lm_pin_summary(logits.numpy())
+        logits, _ = model.decode(params, dbatch, cache)
+        out["decode"] = lm_pin_summary(logits.cpu().numpy())
+    state = {"params": lm_params_from_numpy(host, device),
+             "opt": init_params(make_optimizer(cfg.optimizer).init_specs(model.param_specs()),
+                                torch.Generator(device), device),
+             "step": torch.tensor(0, dtype=torch.int32)}
+    step = make_train_step(cfg, ShapeSpec("pin", "train", LM_PIN_SHAPE[1], LM_PIN_SHAPE[0]),
+                           **LM_PIN_TRAIN)
+    losses, norms = [], []
+    for _ in range(LM_PIN_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    with torch.no_grad():
+        out["final_loss"] = float(model.loss(state["params"], batch))
+    out["step_losses"], out["step_grad_norms"] = losses, norms
+    return out
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def _rel_logits(a: dict, b: dict) -> float:
+    return max(_rel(a["head"], b["head"]), _rel(a["norm"], b["norm"]))
+
+
+def lm_pin_errors(got: dict, pin: dict) -> dict:
+    """Relative error of each pinned quantity (vectors: max |Δ| over max
+    |pin|)."""
+    return {"loss": _rel(got["loss"], pin["loss"]),
+            "step_losses": _rel(got["step_losses"], pin["step_losses"]),
+            "step_grad_norms": _rel(got["step_grad_norms"], pin["step_grad_norms"]),
+            "final_loss": _rel(got["final_loss"], pin["final_loss"]),
+            "prefill": _rel_logits(got["prefill"], pin["prefill"]),
+            "decode": _rel_logits(got["decode"], pin["decode"])}
+
+
+LM_SERVE = {"batch": 4, "prompt": 512, "decode_steps": 32, "check_layers": 4,
+            "check_decode": 8}
+LM_TRAIN = {"layers": 8, "batch": 8, "seq": 512, "microbatches": 2, "steps": 20,
+            "lr": 3e-4, "warmup": 5}
+LM_FREE_SHARE = 0.2                    # the train cell leaves a fifth of the card free
+H100_BF16_PEAK = 989e12                # dense bf16 FLOP/s, H100 SXM data sheet
+
+
+def _sync_s(fn):
+    """(result, wall seconds) of ``fn()`` ended by a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _lm_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall (profiled), device
+    busy time, idle share, the number of device kernels and the top ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _open_trace()
+        _, wall = _sync_s(fn)
+    busy, top = _device_time(prof)
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not ev.key.startswith("tg.")
+            and "spin_kernel" not in ev.key)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3), "kernels": n, "top": top}
+
+
+def _lm_serve(gate) -> dict:
+    """Full-width qwen3-4b served in bfloat16 (all 36 layers, tp_degree 1):
+    4 prompts of 512 tokens from ``SyntheticLMData``, then 32 greedy decode
+    steps, twice (the second warm); then the depth-4 float32 check of the
+    decode logits against a full forward over the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import init_params, tree_leaves
+    from repro_torch.models.transformer import decoder_forward
+    from repro_torch.train import make_decode_fn, make_prefill_fn
+
+    cfg = ARCHS["qwen3-4b"]
+    b, s, n_dec = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["decode_steps"]
+    shape = ShapeSpec("lm_serve", "decode", s + n_dec, b)
+    prefill, pspecs = make_prefill_fn(cfg, shape, tp_degree=1)
+    decode, _, cspecs = make_decode_fn(cfg, shape, tp_degree=1)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(pspecs, torch.Generator("cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prompt = torch.from_numpy(next(SyntheticLMData(cfg.vocab_size, s, b))["tokens"]).to("cuda")
+
+    runs = []
+    for _ in range(2):
+        (logits, cache), t_prefill = _sync_s(lambda: prefill(params, {"tokens": prompt}))
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_dec):
+            logits, cache = decode(params, {"tokens": tok, "cache_len": s + i}, cache)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        runs.append({"prefill_ms": t_prefill * 1e3,
+                     "prefill_tokens_per_s": b * s / t_prefill,
+                     "decode_ms_per_token": t_decode * 1e3 / n_dec,
+                     "decode_tokens_per_s": b * n_dec / t_decode,
+                     "finite": bool(finite)})
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    peak = torch.cuda.max_memory_allocated()
+    profiled = {"prefill": _lm_profile(lambda: prefill(params, {"tokens": prompt})),
+                "decode_step": _lm_profile(lambda: decode(
+                    params, {"tokens": tok, "cache_len": s + n_dec - 1}, cache))}
+    for run in runs:
+        gate(run["finite"], f"lm serve: non-finite logits {run}")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # the cache against a full forward: depth 4, float32 compute, same tokens
+    cfg4 = dataclasses.replace(cfg, num_layers=LM_SERVE["check_layers"], compute_dtype="float32")
+    model = build_model(cfg4, tp_degree=1)
+    n_chk = LM_SERVE["check_decode"]
+    with torch.no_grad():
+        p4 = init_params(model.param_specs(), torch.Generator("cuda").manual_seed(1), "cuda")
+        logits, cache = model.prefill(p4, {"tokens": prompt}, s + n_chk)
+        toks = [prompt]
+        got = [logits[:, 0]]
+        for i in range(n_chk):
+            tok = got[-1].argmax(-1, keepdim=True)
+            toks.append(tok)
+            logits, cache = model.decode(p4, {"tokens": tok, "cache_len": s + i}, cache)
+            got.append(logits[:, 0])
+        full, _ = decoder_forward(cfg4, p4, {"tokens": torch.cat(toks, dim=1)})
+        want = full[:, s - 1:s + n_chk]
+        got = torch.stack(got, dim=1)
+        err = float((got - want).abs().max())
+        ratio = float(((got - want).abs() / (2e-2 + 2e-2 * want.abs())).max())
+    gate(ratio <= 1.0, f"lm serve: decode logits {err} from the full forward (2e-2)")
+    del p4, cache, full, got, want
+    torch.cuda.empty_cache()
+    return {"arch": "qwen3-4b", "layers": cfg.num_layers, "params": n_params,
+            "weights_dtype": "bfloat16", "batch": b, "prompt": s, "decode_steps": n_dec,
+            "cold": runs[0], "warm": runs[1], "profiled": profiled, "cache_bytes": cache_bytes,
+            "peak_bytes": peak, "baseline_bytes": base,
+            "check": {"layers": cfg4.num_layers, "compute": "float32", "decode_steps": n_chk,
+                      "max_abs_err": err, "err_over_tol": ratio}}
+
+
+def _lm_train_flops(cfg, tokens: int, seq: int) -> tuple[int, int]:
+    """(model FLOPs of one train step, the matmul weights N): 6·N·tokens for
+    the weight products (N: the layers' and the unembedding's weights, not
+    the embedding gather) plus 3 × the attention products (q·k and p·v over
+    the full square that ``flash_attention`` computes); remat's recompute
+    is not counted."""
+    d, h, kv, hd, ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * h * hd * 2 + 2 * d * kv * hd + 3 * d * ff
+    n = cfg.num_layers * per_layer + d * cfg.padded_vocab
+    attn = 3 * 2 * 2 * tokens * seq * h * hd * cfg.num_layers
+    return 6 * n * tokens + attn, n
+
+
+def _lm_train(gate) -> dict:
+    """qwen3-4b at full width and depth 8: AdamW, batch 8 × 512 in two
+    microbatches, remat on, 20 steps of ``make_train_step`` on
+    ``SyntheticLMData`` through the prefetching device iterator."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.layers import init_params, tree_leaves
+    from repro_torch.train import make_train_state_specs, make_train_step
+
+    t = LM_TRAIN
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=t["layers"],
+                              microbatches={"lm_train": t["microbatches"]})
+    shape = ShapeSpec("lm_train", "train", t["seq"], t["batch"])
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_params(make_train_state_specs(cfg), torch.Generator("cuda").manual_seed(0),
+                        "cuda")
+    state["step"] = state["step"].cpu()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    step = make_train_step(cfg, shape, lr=t["lr"], warmup=t["warmup"], total_steps=t["steps"])
+    it = SyntheticLMData(cfg.vocab_size, t["seq"], t["batch"]).device_iterator("cuda")
+    losses, norms, walls = [], [], []
+    try:
+        for _ in range(t["steps"]):
+            batch = next(it)
+            (state, metrics), wall = _sync_s(lambda: step(state, batch))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
+        batch = next(it)
+        profiled = _lm_profile(lambda: step(state, batch))
+    finally:
+        it.close()
+    total = torch.cuda.get_device_properties(0).total_memory
+    tokens = t["batch"] * t["seq"]
+    flops, n_matmul = _lm_train_flops(cfg, tokens, t["seq"])
+    warm = statistics.median(walls[1:])
+    gate(all(math.isfinite(x) for x in losses + norms), f"lm train: non-finite {losses} {norms}")
+    gate(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+         f"lm train: the loss did not fall {losses}")
+    gate(peak <= (1 - LM_FREE_SHARE) * total,
+         f"lm train: peak {peak} bytes leaves less than a fifth of {total}")
+    del state
+    torch.cuda.empty_cache()
+    return {"arch": "qwen3-4b", "layers": cfg.num_layers, "params": n_params,
+            "matmul_params": n_matmul, "optimizer": cfg.optimizer, "batch": t["batch"],
+            "seq": t["seq"], "microbatches": t["microbatches"], "remat": cfg.remat,
+            "losses": losses, "grad_norms": norms, "step_ms": [w * 1e3 for w in walls],
+            "profiled_step": profiled,
+            "first_step_ms": walls[0] * 1e3, "warm_step_ms_median": warm * 1e3,
+            "tokens_per_s": tokens / warm, "model_flops_per_step": flops,
+            "model_tflops_per_s": flops / warm / 1e12,
+            "mfu_vs_bf16_peak": flops / warm / H100_BF16_PEAK,
+            "peak_bytes": peak, "baseline_bytes": base, "card_bytes": total}
+
+
+def _lm_launcher(gate) -> dict:
+    """``repro_torch.launch.train`` at ``--smoke`` on the card: 20 steps with
+    checkpoints every 10, then a relaunch to 35 that must resume at 20."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import main as train_main
+
+    ckpt = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["--arch", "qwen3-4b", "--smoke", "--seq-len", "64", "--batch", "8",
+            "--ckpt-dir", str(ckpt), "--ckpt-every", "10", "--log-every", "100",
+            "--device", "cuda"]
+    runs = []
+    for steps in (20, 35):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            loss = train_main(args + ["--steps", str(steps)])
+        runs.append({"steps": steps, "final_loss": loss, "wall_s": time.perf_counter() - t0,
+                     "latest_step": CheckpointManager(str(ckpt)).latest_step(),
+                     "log": buf.getvalue().splitlines()})
+    gate(runs[0]["latest_step"] == 20, f"lm launcher: first run ended at {runs[0]}")
+    gate("[resume] restoring step 20" in runs[1]["log"][0],
+         f"lm launcher: the relaunch did not resume at 20: {runs[1]['log'][:2]}")
+    gate(runs[1]["latest_step"] == 35 and math.isfinite(runs[1]["final_loss"]),
+         f"lm launcher: relaunch {runs[1]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"runs": runs}
+
+
+def _lm_f32_contractions() -> dict:
+    """What the float32 results of bfloat16 contractions cost: the
+    unembedding at the decode (4 tokens) and train-microbatch (2,048 tokens)
+    shapes, as ``dot_f32`` computes it (operands widened to float32), beside
+    a bfloat16 product and, where this torch has it, ``torch.mm(...,
+    out_dtype=torch.float32)``."""
+    from repro_torch.models.layers import dot_f32
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    w = torch.randn((2560, 152064), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for rows in (4, 2048):
+        x = torch.randn((rows, 2560), generator=gen, device="cuda").bfloat16()
+        row = {"dot_f32_ms": time_ms(lambda: dot_f32(x, w), reps=10),
+               "bf16_mm_ms": time_ms(lambda: x @ w, reps=10)}
+        try:
+            ref = dot_f32(x, w)
+            got = torch.mm(x, w, out_dtype=torch.float32)
+            row["mm_out_dtype_ms"] = time_ms(lambda: torch.mm(x, w, out_dtype=torch.float32),
+                                             reps=10)
+            row["mm_out_dtype_max_rel_err"] = float((got - ref).abs().max() / ref.abs().max())
+        except (TypeError, RuntimeError, NotImplementedError) as exc:
+            row["mm_out_dtype_ms"] = None
+            row["mm_out_dtype_error"] = f"{type(exc).__name__}: {str(exc)[:120]}"
+        out[f"rows_{rows}"] = row
+    return out
+
+
+def phase_lm():
+    """The LM harness's dense decoder family (A17a): (a) the five ported
+    architectures at smoke width in float32 against pinned JAX numbers; (b)
+    qwen3-4b served at full width; (c) qwen3-4b trained at full width and
+    depth 8; (d) the launcher's checkpoint and resume.  (b)-(d) are the
+    path whose kernel launches are counted: it launches none of B1-B6."""
+    from repro_torch import kernels
+
+    gates = []
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    t_phase = time.perf_counter()
+    pins = {}
+    for arch in LM_ARCHS:
+        got = lm_pin_run(arch, "cuda")
+        errs = lm_pin_errors(got, JAX_LM_PINS[arch])
+        errs["decode_vs_host_same_cache"] = _rel_logits(got["decode"],
+                                                        got["decode_host_same_cache"])
+        pins[arch] = {"errors": errs, "got": got}
+        gate(max(v for k, v in errs.items() if k != "decode") <= LM_PIN_TOL
+             and errs["decode"] <= LM_PIN_DECODE_TOL, f"lm pins {arch}: {errs}")
+    kernels.reset_launches()
+    serve = _lm_serve(gate)
+    train = _lm_train(gate)
+    launcher = _lm_launcher(gate)
+    launches = dict(kernels.LAUNCHES)
+    contractions = _lm_f32_contractions()
+    out = {"phase": "lm", "pins": pins, "serve": serve, "train": train, "launcher": launcher,
+           "f32_contractions": contractions, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
 def phase_trace_drops():
     """How often a torch.profiler trace misses a launch of B1 or B2 that
     the wrappers counted, and which records it loses: the matrix-free
@@ -4004,7 +4526,7 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "trace_drops",
+               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "trace_drops",
                "quickstart", "kernels_offsets64")
 
 
@@ -4065,6 +4587,7 @@ def main(argv=None) -> int:
     elemalg = phase_elemalg(prob)
     served = phase_serve()
     sharded = phase_sharded()
+    lm = phase_lm()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -4078,7 +4601,8 @@ def main(argv=None) -> int:
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
              "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"],
-             "serve": served["launches"], "sharded": sharded["launches"]}
+             "serve": served["launches"], "sharded": sharded["launches"],
+             "lm": lm["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -4125,6 +4649,7 @@ def run_only(only) -> int:
               "elemalg": lambda: phase_elemalg(None),
               "serve": phase_serve,
               "sharded": phase_sharded,
+              "lm": phase_lm,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

@@ -6,7 +6,9 @@ The JAX side exports its state with ``np.asarray`` (mesh ``points`` /
 sets); :func:`from_numpy` turns such a dict into the port's objects on a
 device, so both packages compute on the same inputs.  Parameter trees
 (SIREN, AGN, an Adam state: JAX PRNG draws that torch cannot reproduce)
-come across with :func:`params_from_numpy`.
+come across with :func:`params_from_numpy`; an LM parameter or train-state
+tree (float32, int32 and bfloat16 leaves) with :func:`lm_params_from_numpy`,
+which keeps each leaf's own dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from .core.assembly import DTYPE, resolve_device
 from .core.mesh import Mesh
 from .core.sparse import CSR, BatchedCSR, CSRPattern
 
-__all__ = ["from_numpy", "params_from_numpy"]
+__all__ = ["from_numpy", "lm_params_from_numpy", "params_from_numpy"]
 
 _MESH_KEYS = ("points", "cells", "cell_type")
 _CSR_KEYS = ("vals", "indptr", "indices", "shape")
@@ -101,5 +103,29 @@ def params_from_numpy(tree, device=None):
         if isinstance(t, (list, tuple)):
             return type(t)(convert(v) for v in t)
         return _tensor(t, device)
+
+    return convert(tree)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """A nested dict/list/tuple of numpy arrays (an LM parameter or train
+    state tree exported with ``jax.tree.map(np.asarray, params)``) → the same
+    tree of tensors on ``device`` with each leaf's own dtype: float32 stays
+    float32, int32 stays int32, and bfloat16 (``ml_dtypes``) comes across
+    bit for bit through a ``uint16`` view.  (:func:`params_from_numpy`
+    widens every float to float64, which suits the FEM trees only.)"""
+    device = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(convert(v) for v in t)
+        a = np.asarray(t)
+        if a.dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+            return torch.from_numpy(bits).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a)).to(device)
 
     return convert(tree)
