@@ -172,9 +172,24 @@ Phases, one JSON line each:
    ``--smoke`` with checkpoints every 10 steps, relaunched from 20 to 35;
    and what float32 results of bfloat16 contractions cost.  The path
    launches none of B1-B6;
-22. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+22. lm_families — the LM harness's other five families (A17b): all ten
+   architectures at smoke width against pinned JAX numbers; RWKV6 and
+   Mamba2 chunked against stepwise decode, RWKV6's chunk-size invariance,
+   its chunked WKV's overflow (ROADMAP C4) in the host's rows, MoE routing
+   on tied gates; then at published widths (``LM_FAMILY_CELLS``, bfloat16
+   serve weights, tp_degree 1): rwkv6-1.6b served (4 × 512, 32 steps) and
+   trained at full depth and zamba2-7b served at 81 layers and trained at
+   12, both at ssm_chunk 8 with their scans' decay sums probed (C4, C5);
+   whisper-tiny served and trained on 1,500 frames; qwen3-moe-30b-a3b
+   served at depth 24 and trained at depth 2; llama4-maverick-400b-a17b
+   served at depth 1 (finite logits, falling losses, a fifth of the card
+   free while training; prefill, decode and step times, tokens/s, peak
+   memory, profiled idle shares); one MoE layer of each at 128 experts
+   timed by its router, dense dispatch and combine, and expert products.
+   The path launches none of B1-B6;
+23. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-23. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+24. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -196,7 +211,8 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
-``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``lm``, ``quickstart`` and
+``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``lm``, ``lm_families``,
+``quickstart`` and
 ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
@@ -3909,9 +3925,13 @@ def phase_sharded():
 # lm: the LM harness's dense decoder family (A17a)
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = ("qwen3-4b", "qwen3-32b", "deepseek-67b", "nemotron-4-340b", "internvl2-26b")
+LM_DENSE_ARCHS = ("qwen3-4b", "qwen3-32b", "deepseek-67b", "nemotron-4-340b", "internvl2-26b")
+LM_FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-7b",
+                   "whisper-tiny")
+LM_ARCHS = LM_DENSE_ARCHS + LM_FAMILY_ARCHS
 LM_PIN_SEED = 0
 LM_PIN_SHAPE = (2, 16)                 # batch, text tokens
+LM_PIN_FRAMES = 24                     # whisper-tiny's encoder frames in its pin case
 LM_PIN_TRAIN = {"lr": 1e-3, "warmup": 1, "total_steps": 10}
 LM_PIN_STEPS = 3
 LM_PIN_LOGITS = 8                      # logits[:, 0, :8] of each row are pinned
@@ -4014,14 +4034,100 @@ JAX_LM_PINS = {
             0.22397427260875702, 0.9808418154716492, 1.6688140630722046, 0.9667549133300781,
         ]},
     },
+    "qwen3-moe-30b-a3b": {
+        "loss": 6.314986705780029, "final_loss": 4.03675651550293,
+        "step_losses": [6.314986705780029, 5.194511413574219, 4.660815715789795],
+        "step_grad_norms": [6.862246036529541, 5.6453070640563965, 6.259795188903809],
+        "prefill": {"norm": 23.027400872373967, "head": [
+            0.2501823306083679, 0.3523837924003601, -1.0100561380386353, -1.92172110080719,
+            -0.6134594082832336, 0.6212752461433411, -1.1775853633880615, 1.934861660003662,
+            0.5565177798271179, 0.8095695972442627, -0.41134992241859436, 0.638436496257782,
+            0.375395268201828, 0.036056049168109894, 0.7807801961898804, -1.1728590726852417,
+        ]},
+        "decode": {"norm": 22.90241505108468, "head": [
+            0.7564656734466553, -0.21333958208560944, 0.1960456371307373, -0.5084850788116455,
+            0.5143436789512634, 0.5276702642440796, 0.3334618806838989, 1.7254624366760254,
+            0.2773328423500061, -1.8905012607574463, -0.7342661619186401, 0.9667069911956787,
+            0.933770477771759, 1.2538782358169556, -0.6626486778259277, -2.1992745399475098,
+        ]},
+    },
+    "llama4-maverick-400b-a17b": {
+        "loss": 6.046197891235352, "final_loss": 3.4213404655456543,
+        "step_losses": [6.046197891235352, 4.722609043121338, 3.657621383666992],
+        "step_grad_norms": [8.405623435974121, 6.407298564910889, 5.721567153930664],
+        "prefill": {"norm": 24.04938659596146, "head": [
+            0.10037511587142944, -1.2644845247268677, 1.2219325304031372, -1.8508914709091187,
+            1.9135160446166992, -0.4926224946975708, -1.7838213443756104, -0.6216846704483032,
+            1.7359333038330078, 0.36280253529548645, -0.7642924785614014, 0.3311542868614197,
+            -0.8610168695449829, -0.19195924699306488, 1.9223315715789795, 0.9504520297050476,
+        ]},
+        "decode": {"norm": 23.495879847095946, "head": [
+            -1.3135403394699097, -0.6000087857246399, -0.9126715064048767, -0.03090474009513855,
+            0.3887713551521301, -1.0475033521652222, -1.9932653903961182, -2.0580496788024902,
+            0.08079995959997177, 0.196303129196167, -0.7929314374923706, -0.9280939698219299,
+            -0.2214236855506897, -2.7940406799316406, -0.3537585437297821, -0.6671246886253357,
+        ]},
+    },
+    "rwkv6-1.6b": {
+        "loss": 6.086196422576904, "final_loss": 3.668578624725342,
+        "step_losses": [6.086196422576904, 4.981728553771973, 4.203218460083008],
+        "step_grad_norms": [2028.785888671875, 44.14396286010742, 68.43218231201172],
+        "prefill": {"norm": 22.627771083419432, "head": [
+            -0.3145429491996765, -0.5847053527832031, 0.13181491196155548, -0.5432112812995911,
+            -1.0664868354797363, -0.5114272236824036, 0.7121044993400574, 0.10614582896232605,
+            -1.9757702350616455, 0.9172000288963318, -0.06461819261312485, -1.015816569328308,
+            0.8522946834564209, 1.9470436573028564, 0.2921687364578247, 1.2414401769638062,
+        ]},
+        "decode": {"norm": 23.664556811030508, "head": [
+            -2.2096381187438965, 0.9836785793304443, -1.0279674530029297, -0.6952508687973022,
+            -1.269500970840454, -0.32265669107437134, 0.2236274778842926, 0.3492327332496643,
+            -0.9670823216438293, 1.2462575435638428, 0.40864238142967224, 1.1970654726028442,
+            -0.636516273021698, -0.6120502352714539, 0.5224255919456482, -1.9599045515060425,
+        ]},
+    },
+    "zamba2-7b": {
+        "loss": 6.132490158081055, "final_loss": 3.6303539276123047,
+        "step_losses": [6.132490158081055, 4.992997646331787, 4.218731880187988],
+        "step_grad_norms": [10.792404174804688, 8.089300155639648, 7.079855918884277],
+        "prefill": {"norm": 23.304585266460773, "head": [
+            -1.5429387092590332, 0.5021837949752808, 0.34819895029067993, 1.564948558807373,
+            0.4217771887779236, -0.4405800998210907, 0.024958953261375427, -0.08494970202445984,
+            0.5943989157676697, 0.39692339301109314, -0.5612823963165283, 0.48421981930732727,
+            2.1425044536590576, -0.07557955384254456, 0.37710538506507874, -0.6284205317497253,
+        ]},
+        "decode": {"norm": 24.572905871411024, "head": [
+            0.6154999732971191, 1.3478524684906006, -2.877138376235962, -1.336215853691101,
+            1.053246021270752, -1.1280027627944946, -0.5512241125106812, -2.3025455474853516,
+            0.674457311630249, -0.39682459831237793, -0.6093084216117859, 0.5020235180854797,
+            -2.462822914123535, 0.12098902463912964, 1.0344386100769043, -0.5180901885032654,
+        ]},
+    },
+    "whisper-tiny": {
+        "loss": 6.241849899291992, "final_loss": 4.570272445678711,
+        "step_losses": [6.241849899291992, 5.375491142272949, 4.886719226837158],
+        "step_grad_norms": [5.305478096008301, 3.756276845932007, 3.0948712825775146],
+        "prefill": {"norm": 23.736238645061544, "head": [
+            -1.4937021732330322, 0.3171631395816803, 0.8340499997138977, -1.8659087419509888,
+            -0.6194753050804138, -1.3557943105697632, -0.4294300079345703, -3.2144768238067627,
+            -1.8196532726287842, 0.13517287373542786, -0.4107019007205963, -2.103198766708374,
+            0.7678393125534058, 0.08779062330722809, 0.1764543056488037, -3.0697262287139893,
+        ]},
+        "decode": {"norm": 23.59985127260201, "head": [
+            -1.3012192249298096, 0.2724624574184418, 1.2651643753051758, -2.0417497158050537,
+            -0.367735892534256, -1.5780600309371948, -0.4712269604206085, -3.3417069911956787,
+            -2.242830514907837, 0.452923983335495, -0.17833884060382843, -2.5368852615356445,
+            0.5684479475021362, -0.18784303963184357, 0.6665124893188477, -3.372729539871216,
+        ]},
+    },
 }
 
 
 def lm_pin_overrides(arch: str) -> dict:
     """The smoke config's overrides for the pins: float32 compute, and two
-    microbatches for nemotron-4 (its bfloat16 gradient accumulation)."""
+    microbatches for nemotron-4 and llama4-maverick (their bfloat16
+    gradient accumulation)."""
     kw = {"compute_dtype": "float32"}
-    if arch == "nemotron-4-340b":
+    if arch in ("nemotron-4-340b", "llama4-maverick-400b-a17b"):
         kw["microbatches"] = {"pin": 2}
     return kw
 
@@ -4044,6 +4150,9 @@ def lm_pin_case(arch: str):
     if cfg.frontend == "patch_embed":
         batch["vision_embeds"] = rng.standard_normal(
             (b, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend == "audio_frames":
+        batch["audio_embeds"] = rng.standard_normal(
+            (b, LM_PIN_FRAMES, cfg.d_model)).astype(np.float32)
     return cfg, params, batch
 
 
@@ -4058,7 +4167,7 @@ def lm_pin_run(arch: str, device: str) -> dict:
     from repro_torch.configs import ShapeSpec
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import build_model
-    from repro_torch.models.layers import init_params
+    from repro_torch.models.layers import init_params, tree_map
     from repro_torch.optim import make_optimizer
     from repro_torch.train import make_train_step
 
@@ -4077,7 +4186,7 @@ def lm_pin_run(arch: str, device: str) -> dict:
         out["prefill"] = lm_pin_summary(logits.cpu().numpy())
         dbatch = {"tokens": batch["tokens"][:, s - 1:], "cache_len": s - 1 + n_img}
         if device != "cpu":     # the same decode on the host from this cache
-            on_host = {k: v.cpu() for k, v in cache.items()}
+            on_host = tree_map(lambda t: t.cpu(), cache)
             logits, _ = model.decode(lm_params_from_numpy(host, "cpu"),
                                      {"tokens": dbatch["tokens"].cpu(),
                                       "cache_len": dbatch["cache_len"]}, on_host)
@@ -4138,12 +4247,15 @@ def _sync_s(fn):
     return out, time.perf_counter() - t0
 
 
-def _lm_profile(fn) -> dict:
+def _lm_profile(fn, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: wall (profiled), device
-    busy time, idle share, the number of device kernels and the top ones."""
+    busy time, idle share, the number of device kernels and the top ones.
+    ``host_ops=False`` traces the device alone, which keeps a trace of
+    100k launches quick to read."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         _open_trace()
         _, wall = _sync_s(fn)
     busy, top = _device_time(prof)
@@ -4154,59 +4266,221 @@ def _lm_profile(fn) -> dict:
             "idle_share": 1 - busy / (wall * 1e3), "kernels": n, "top": top}
 
 
-def _lm_serve(gate) -> dict:
-    """Full-width qwen3-4b served in bfloat16 (all 36 layers, tp_degree 1):
-    4 prompts of 512 tokens from ``SyntheticLMData``, then 32 greedy decode
-    steps, twice (the second warm); then the depth-4 float32 check of the
-    decode logits against a full forward over the same tokens."""
-    import dataclasses
+# whisper-tiny: 30 s of audio (the encoder's 1,500 frames); a decoder prompt
+# of 64 tokens to serve, and its 448-token context (Whisper's) to train
+LM_WHISPER = {"frames": 1500, "prompt": 64}
+F32_LOG_MAX = float(np.log(np.finfo(np.float32).max))     # 88.72: exp() above overflows
+DECAY_PROBE_CHUNKS = (1, 4, 8, 16, 32, 64, 256)
 
-    from repro_torch.configs import ARCHS, ShapeSpec
+
+def _decay_probe(fn) -> dict:
+    """Run ``fn`` (a no-grad forward of an RWKV6 or Mamba2 model) with the
+    chunked scans' inputs recorded: each scan's log-decay per step (RWKV6's
+    logw, Mamba2's Δt·A) summed over the chunk-aligned windows of each size
+    in ``DECAY_PROBE_CHUNKS``.  The chunked forms take exp of minus such a
+    sum (RWKV6's exp(−Λ_incl), Mamba2's exp(Λ_t − Λ_s) before the mask), so
+    a window below −88.72 overflows float32 and its rows turn NaN (ROADMAP
+    C4, C5).  Returns the most negative window of each size over all scans,
+    the number of scans with one below the limit, and the first scan whose
+    output is not finite."""
+    from unittest import mock
+
+    from repro_torch.models import mamba2, rwkv6
+
+    sums = {c: [] for c in DECAY_PROBE_CHUNKS}
+    first_bad = []
+
+    def record(logdecay, out):
+        s = logdecay.shape[1]
+        for c in DECAY_PROBE_CHUNKS:
+            pad = -(-s // c) * c - s
+            win = torch.nn.functional.pad(logdecay.movedim(1, -1), (0, pad))
+            sums[c].append(float(win.reshape(*win.shape[:-1], -1, c).sum(-1).min()))
+        if not first_bad and not bool(torch.isfinite(out).all()):
+            first_bad.append(len(sums[1]) - 1)
+        return out
+
+    wkv, ssd = rwkv6._wkv_chunked, mamba2._ssd_chunked
+
+    def wkv_rec(r, k, v, logw, u, state, chunk):
+        out = wkv(r, k, v, logw, u, state, chunk)
+        record(logw.float(), out[0])
+        return out
+
+    def ssd_rec(x, dt, a_log, b_in, c_in, state, chunk):
+        out = ssd(x, dt, a_log, b_in, c_in, state, chunk)
+        if x.shape[1] > 1:                                   # not a decode step
+            record(dt.float() * -torch.exp(a_log.float()), out[0])
+        return out
+
+    with torch.no_grad(), mock.patch.object(rwkv6, "_wkv_chunked", wkv_rec), \
+            mock.patch.object(mamba2, "_ssd_chunked", ssd_rec):
+        fn()
+    return {"scans": len(sums[1]),
+            "min_window_sum": {c: min(v) for c, v in sums.items()},
+            "scans_below_limit": {c: sum(x < -F32_LOG_MAX for x in v) for c, v in sums.items()},
+            "first_nonfinite_scan": first_bad[0] if first_bad else None}
+
+
+def _family_inputs(cfg, b, s, gen):
+    """A batch's extra inputs on the card: whisper's encoder frames."""
+    if cfg.frontend == "audio_frames":
+        return {"audio_embeds": torch.randn((b, LM_WHISPER["frames"], cfg.d_model),
+                                            generator=gen, device="cuda")}
+    return {}
+
+
+def _serve_cell(cfg, gate, prompt: int, decode_steps: int, host_ops: bool = False) -> dict:
+    """``cfg`` served in bfloat16 (tp_degree 1): ``LM_SERVE["batch"]``
+    prompts of ``prompt`` tokens from ``SyntheticLMData`` (whisper's with
+    its encoder frames), then ``decode_steps`` greedy decode steps, twice
+    (the second warm); a profiled prefill and decode step (``host_ops``: the
+    host's ops traced too); an RWKV6 or Mamba2 scan's decay sums on the
+    prompt."""
+    from repro_torch.configs import ShapeSpec
     from repro_torch.data import SyntheticLMData
-    from repro_torch.models import build_model
     from repro_torch.models.layers import init_params, tree_leaves
-    from repro_torch.models.transformer import decoder_forward
     from repro_torch.train import make_decode_fn, make_prefill_fn
 
-    cfg = ARCHS["qwen3-4b"]
-    b, s, n_dec = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["decode_steps"]
+    b, s, n_dec = LM_SERVE["batch"], prompt, decode_steps
     shape = ShapeSpec("lm_serve", "decode", s + n_dec, b)
     prefill, pspecs = make_prefill_fn(cfg, shape, tp_degree=1)
-    decode, _, cspecs = make_decode_fn(cfg, shape, tp_degree=1)
+    decode, _, _ = make_decode_fn(cfg, shape, tp_degree=1)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    params = init_params(pspecs, torch.Generator("cuda").manual_seed(0), "cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(pspecs, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
-    prompt = torch.from_numpy(next(SyntheticLMData(cfg.vocab_size, s, b))["tokens"]).to("cuda")
+    weight_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    batch = {"tokens": torch.from_numpy(next(SyntheticLMData(cfg.vocab_size, s, b))["tokens"]).to(
+        "cuda"), **_family_inputs(cfg, b, s, gen)}
 
     runs = []
     for _ in range(2):
-        (logits, cache), t_prefill = _sync_s(lambda: prefill(params, {"tokens": prompt}))
+        (logits, cache), t_prefill = _sync_s(lambda: prefill(params, batch))
         finite = torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         for i in range(n_dec):
             logits, cache = decode(params, {"tokens": tok, "cache_len": s + i}, cache)
             finite &= torch.isfinite(logits).all()
             tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
-        t_decode = time.perf_counter() - t0
+        t_decode = time.perf_counter() - t1
         runs.append({"prefill_ms": t_prefill * 1e3,
                      "prefill_tokens_per_s": b * s / t_prefill,
                      "decode_ms_per_token": t_decode * 1e3 / n_dec,
                      "decode_tokens_per_s": b * n_dec / t_decode,
                      "finite": bool(finite)})
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
     peak = torch.cuda.max_memory_allocated()
-    profiled = {"prefill": _lm_profile(lambda: prefill(params, {"tokens": prompt})),
+    profiled = {"prefill": _lm_profile(lambda: prefill(params, batch), host_ops),
                 "decode_step": _lm_profile(lambda: decode(
-                    params, {"tokens": tok, "cache_len": s + n_dec - 1}, cache))}
+                    params, {"tokens": tok, "cache_len": s + n_dec - 1}, cache), host_ops)}
+    probe = (_decay_probe(lambda: prefill(params, batch))
+             if cfg.family in ("ssm", "hybrid") else None)
     for run in runs:
-        gate(run["finite"], f"lm serve: non-finite logits {run}")
+        gate(run["finite"], f"serve {cfg.name}: non-finite logits {run}")
     del params, cache, logits
     torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "params": n_params, "weight_bytes": weight_bytes,
+            "weights_dtype": "bfloat16", "batch": b, "prompt": s, "decode_steps": n_dec,
+            "ssm_chunk": cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else None,
+            "frames": LM_WHISPER["frames"] if cfg.frontend == "audio_frames" else None,
+            "init_s": init_s, "cold": runs[0], "warm": runs[1], "profiled": profiled,
+            "decay_probe": probe, "cache_bytes": cache_bytes, "peak_bytes": peak,
+            "baseline_bytes": base}
+
+
+def _train_cell(cfg, gate, batch_size: int, seq: int, microbatches: int, steps: int,
+                lr: float, warmup: int, host_ops: bool = False) -> dict:
+    """``cfg`` trained with its optimizer on ``batch_size`` × ``seq`` tokens
+    (whisper with its encoder frames) in ``microbatches``, remat on:
+    ``steps`` of ``make_train_step`` (peak learning rate ``lr`` after
+    ``warmup`` steps) on ``SyntheticLMData`` through the prefetching device
+    iterator; finite losses and grad norms, the last 5 losses below the
+    first 5, a fifth of the card left free; a profiled step; an RWKV6 or
+    Mamba2 scan's decay sums on the first batch."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import init_params, tree_leaves
+    from repro_torch.train import make_train_state_specs, make_train_step
+
+    cfg = dataclasses.replace(cfg, microbatches={"lm_train": microbatches})
+    shape = ShapeSpec("lm_train", "train", seq, batch_size)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = init_params(make_train_state_specs(cfg), gen, "cuda")
+    state["step"] = state["step"].cpu()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    step = make_train_step(cfg, shape, lr=lr, warmup=warmup, total_steps=steps)
+    extra = _family_inputs(cfg, batch_size, seq, gen)
+    it = SyntheticLMData(cfg.vocab_size, seq, batch_size).device_iterator("cuda")
+    losses, norms, walls = [], [], []
+    probe = None
+    try:
+        if cfg.family in ("ssm", "hybrid"):
+            first = {**next(it), **extra}
+            probe = _decay_probe(lambda: build_model(cfg).loss(state["params"], first))
+        for _ in range(steps):
+            batch = {**next(it), **extra}
+            (state, metrics), wall = _sync_s(lambda: step(state, batch))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
+        batch = {**next(it), **extra}
+        profiled = _lm_profile(lambda: step(state, batch), host_ops)
+    finally:
+        it.close()
+    total = torch.cuda.get_device_properties(0).total_memory
+    warm = statistics.median(walls[1:])
+    tokens = batch_size * seq
+    gate(all(math.isfinite(x) for x in losses + norms),
+         f"train {cfg.name}: non-finite {losses} {norms}")
+    gate(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+         f"train {cfg.name}: the loss did not fall {losses}")
+    gate(peak <= (1 - LM_FREE_SHARE) * total,
+         f"train {cfg.name}: peak {peak} bytes leaves less than a fifth of {total}")
+    del state
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "params": n_params, "optimizer": cfg.optimizer,
+            "batch": batch_size, "seq": seq, "microbatches": microbatches, "lr": lr,
+            "remat": cfg.remat, "ssm_chunk": cfg.ssm_chunk if cfg.family in ("ssm", "hybrid")
+            else None, "decay_probe": probe, "losses": losses, "grad_norms": norms,
+            "step_ms": [w * 1e3 for w in walls], "first_step_ms": walls[0] * 1e3,
+            "warm_step_ms_median": warm * 1e3, "tokens_per_s": tokens / warm,
+            "profiled_step": profiled, "peak_bytes": peak, "baseline_bytes": base,
+            "card_bytes": total}
+
+
+def _lm_serve(gate) -> dict:
+    """Full-width qwen3-4b served in bfloat16 (``_serve_cell``: all 36
+    layers, 4 prompts of 512 tokens, 32 greedy decode steps); then the
+    depth-4 float32 check of the decode logits against a full forward over
+    the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.transformer import decoder_forward
+
+    cfg = ARCHS["qwen3-4b"]
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt"]
+    out = _serve_cell(cfg, gate, s, LM_SERVE["decode_steps"], host_ops=True)
+    prompt = torch.from_numpy(next(SyntheticLMData(cfg.vocab_size, s, b))["tokens"]).to("cuda")
 
     # the cache against a full forward: depth 4, float32 compute, same tokens
     cfg4 = dataclasses.replace(cfg, num_layers=LM_SERVE["check_layers"], compute_dtype="float32")
@@ -4230,10 +4504,7 @@ def _lm_serve(gate) -> dict:
     gate(ratio <= 1.0, f"lm serve: decode logits {err} from the full forward (2e-2)")
     del p4, cache, full, got, want
     torch.cuda.empty_cache()
-    return {"arch": "qwen3-4b", "layers": cfg.num_layers, "params": n_params,
-            "weights_dtype": "bfloat16", "batch": b, "prompt": s, "decode_steps": n_dec,
-            "cold": runs[0], "warm": runs[1], "profiled": profiled, "cache_bytes": cache_bytes,
-            "peak_bytes": peak, "baseline_bytes": base,
+    return {"arch": "qwen3-4b", **out,
             "check": {"layers": cfg4.num_layers, "compute": "float32", "decode_steps": n_chk,
                       "max_abs_err": err, "err_over_tol": ratio}}
 
@@ -4252,63 +4523,22 @@ def _lm_train_flops(cfg, tokens: int, seq: int) -> tuple[int, int]:
 
 
 def _lm_train(gate) -> dict:
-    """qwen3-4b at full width and depth 8: AdamW, batch 8 × 512 in two
-    microbatches, remat on, 20 steps of ``make_train_step`` on
-    ``SyntheticLMData`` through the prefetching device iterator."""
+    """qwen3-4b at full width and depth 8 (``_train_cell``): AdamW, batch
+    8 × 512 in two microbatches, remat on, 20 steps; its model FLOPs and
+    their rate against the bf16 peak."""
     import dataclasses
 
-    from repro_torch.configs import ARCHS, ShapeSpec
-    from repro_torch.data import SyntheticLMData
-    from repro_torch.models.layers import init_params, tree_leaves
-    from repro_torch.train import make_train_state_specs, make_train_step
+    from repro_torch.configs import ARCHS
 
     t = LM_TRAIN
-    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=t["layers"],
-                              microbatches={"lm_train": t["microbatches"]})
-    shape = ShapeSpec("lm_train", "train", t["seq"], t["batch"])
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    state = init_params(make_train_state_specs(cfg), torch.Generator("cuda").manual_seed(0),
-                        "cuda")
-    state["step"] = state["step"].cpu()
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    step = make_train_step(cfg, shape, lr=t["lr"], warmup=t["warmup"], total_steps=t["steps"])
-    it = SyntheticLMData(cfg.vocab_size, t["seq"], t["batch"]).device_iterator("cuda")
-    losses, norms, walls = [], [], []
-    try:
-        for _ in range(t["steps"]):
-            batch = next(it)
-            (state, metrics), wall = _sync_s(lambda: step(state, batch))
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-            walls.append(wall)
-        peak = torch.cuda.max_memory_allocated()
-        batch = next(it)
-        profiled = _lm_profile(lambda: step(state, batch))
-    finally:
-        it.close()
-    total = torch.cuda.get_device_properties(0).total_memory
-    tokens = t["batch"] * t["seq"]
-    flops, n_matmul = _lm_train_flops(cfg, tokens, t["seq"])
-    warm = statistics.median(walls[1:])
-    gate(all(math.isfinite(x) for x in losses + norms), f"lm train: non-finite {losses} {norms}")
-    gate(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
-         f"lm train: the loss did not fall {losses}")
-    gate(peak <= (1 - LM_FREE_SHARE) * total,
-         f"lm train: peak {peak} bytes leaves less than a fifth of {total}")
-    del state
-    torch.cuda.empty_cache()
-    return {"arch": "qwen3-4b", "layers": cfg.num_layers, "params": n_params,
-            "matmul_params": n_matmul, "optimizer": cfg.optimizer, "batch": t["batch"],
-            "seq": t["seq"], "microbatches": t["microbatches"], "remat": cfg.remat,
-            "losses": losses, "grad_norms": norms, "step_ms": [w * 1e3 for w in walls],
-            "profiled_step": profiled,
-            "first_step_ms": walls[0] * 1e3, "warm_step_ms_median": warm * 1e3,
-            "tokens_per_s": tokens / warm, "model_flops_per_step": flops,
-            "model_tflops_per_s": flops / warm / 1e12,
-            "mfu_vs_bf16_peak": flops / warm / H100_BF16_PEAK,
-            "peak_bytes": peak, "baseline_bytes": base, "card_bytes": total}
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=t["layers"])
+    out = _train_cell(cfg, gate, t["batch"], t["seq"], t["microbatches"], t["steps"], t["lr"],
+                      t["warmup"], host_ops=True)
+    warm = out["warm_step_ms_median"] / 1e3
+    flops, n_matmul = _lm_train_flops(cfg, t["batch"] * t["seq"], t["seq"])
+    return {"arch": "qwen3-4b", **out, "matmul_params": n_matmul, "model_flops_per_step": flops,
+            "model_tflops_per_s": flops / warm / 1e12, "mfu_vs_bf16_peak": flops / warm / H100_BF16_PEAK}
+
 
 
 def _lm_launcher(gate) -> dict:
@@ -4387,7 +4617,7 @@ def phase_lm():
 
     t_phase = time.perf_counter()
     pins = {}
-    for arch in LM_ARCHS:
+    for arch in LM_DENSE_ARCHS:
         got = lm_pin_run(arch, "cuda")
         errs = lm_pin_errors(got, JAX_LM_PINS[arch])
         errs["decode_vs_host_same_cache"] = _rel_logits(got["decode"],
@@ -4403,6 +4633,244 @@ def phase_lm():
     contractions = _lm_f32_contractions()
     out = {"phase": "lm", "pins": pins, "serve": serve, "train": train, "launcher": launcher,
            "f32_contractions": contractions, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm_families: the MoE, RWKV6, Mamba2, hybrid and audio families (A17b)
+# ---------------------------------------------------------------------------
+
+LM_FAMILY_TRAIN = {"steps": 10, "lr": 3e-4, "warmup": 3}
+# each published configuration's cells: the serve config's overrides (its
+# depth; the scans' chunk, ROADMAP C4/C5; a prompt length or decode steps
+# other than LM_SERVE's), and the train config's with the train batch and a
+# learning rate other than LM_FAMILY_TRAIN's (None: no train cell).  The
+# chunked scans are a Python loop of small launches a chunk, so zamba2's
+# prompt and both scans' train batches are cut to what the phase's time
+# allows; rwkv6 trains at lr 3e-5, as at 3e-4 its loss rose and was NaN
+# from the fourth step (PERF.md §6; ROADMAP C4).
+LM_FAMILY_CELLS = {
+    "rwkv6-1.6b": ({"ssm_chunk": 8},
+                   {"ssm_chunk": 8, "batch": 8, "seq": 128, "microbatches": 1, "lr": 3e-5}),
+    "zamba2-7b": ({"ssm_chunk": 8, "prompt": 128, "decode_steps": 16},
+                  {"num_layers": 12, "ssm_chunk": 8, "batch": 8, "seq": 128,
+                   "microbatches": 1}),
+    "whisper-tiny": ({"prompt": LM_WHISPER["prompt"]}, {"batch": 8, "seq": 448, "microbatches": 2}),
+    "qwen3-moe-30b-a3b": ({"num_layers": 24},
+                          {"num_layers": 2, "batch": 8, "seq": 512, "microbatches": 2}),
+    "llama4-maverick-400b-a17b": ({"num_layers": 1}, None),
+}
+def _moe_split(cfg) -> dict:
+    """One MoE layer of ``cfg`` at its widths in bfloat16 on the serve cell's
+    prompt batch (4 × 512): device time of ``moe_apply`` and of its parts —
+    the router (gates, top-k, the (G, T, E, C) dispatch and combine
+    tensors), the dispatch contraction ``gtec,gtd→gecd``, the expert
+    products, the combine contraction ``gtec,gecd→gtd`` and the shared
+    expert — by CUDA events, median of 10."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import P, init_params, tree_map
+
+    cfg = dataclasses.replace(cfg, num_layers=1)
+    specs = tree_map(lambda sp: P(sp.shape, sp.axes, sp.init, sp.scale, torch.bfloat16),
+                     moe.moe_specs(cfg))
+    gen = torch.Generator("cuda").manual_seed(3)
+    params = init_params(specs, gen, "cuda")
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt"]
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    with torch.no_grad():
+        dispatch, combine, _ = moe.route(cfg, params, x)
+        dispatch, combine = dispatch.bfloat16(), combine.bfloat16()
+        expert_in = torch.einsum("gtec,gtd->gecd", dispatch, x)
+        expert_out = moe.experts(params, expert_in)
+        parts = {
+            "route": time_ms(lambda: moe.route(cfg, params, x), reps=10),
+            "dispatch_contraction": time_ms(lambda: torch.einsum("gtec,gtd->gecd", dispatch, x),
+                                            reps=10),
+            "expert_products": time_ms(lambda: moe.experts(params, expert_in), reps=10),
+            "combine_contraction": time_ms(
+                lambda: torch.einsum("gtec,gecd->gtd", combine, expert_out), reps=10),
+        }
+        if cfg.moe_shared_expert:
+            parts["shared_expert"] = time_ms(lambda: moe.shared_expert(params["shared"], x),
+                                             reps=10)
+        layer = time_ms(lambda: moe.moe_apply(cfg, params, x), reps=10)
+    e, c = cfg.num_experts, dispatch.shape[-1]
+    dense = parts["dispatch_contraction"] + parts["combine_contraction"]
+    out = {"experts": e, "top_k": cfg.experts_per_token, "capacity": c,
+           "dispatch_shape": [b, s, e, c], "moe_apply_ms": layer, "parts_ms": parts,
+           "dense_dispatch_combine_share": dense / layer,
+           "router_share": parts["route"] / layer,
+           "expert_products_share": parts["expert_products"] / layer,
+           # the expert products' FLOPs at these slots against the tokens' own
+           "slot_flops_over_token_flops": e * c / (s * cfg.experts_per_token)}
+    del params, x, dispatch, combine, expert_in, expert_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_checks(gate) -> dict:
+    """The families at smoke width in float32 on the card: RWKV6 and Mamba2
+    chunked against stepwise (the reference tests' bars, 1e-3 and 5e-2),
+    RWKV6's chunk-size invariance (chunks 8, 16, 20 over 40 tokens), the
+    chunked WKV's overflow at chunk 64 (ROADMAP C4: the same rows finite as
+    on the host, agreeing), and MoE routing on tied gates (a zero router:
+    every token to experts 0..k-1, the first C tokens kept, the output
+    against the host's at 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model, moe, rwkv6
+    from repro_torch.models.hybrid import hybrid_forward
+    from repro_torch.models.layers import numpy_params
+    from repro_torch.models.transformer import decoder_forward
+
+    out = {}
+
+    def stepwise(model, params, tokens):
+        s = tokens.shape[1]
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :1]}, s)
+        got = [logits[:, 0]]
+        for t in range(1, s):
+            logits, cache = model.decode(params, {"tokens": tokens[:, t:t + 1], "cache_len": t},
+                                         cache)
+            got.append(logits[:, 0])
+        return torch.stack(got, dim=1)
+
+    def ratio(got, want, tol):
+        return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+    with torch.no_grad():
+        for arch, s, tol in (("rwkv6-1.6b", 48, 1e-3), ("zamba2-7b", 32, 5e-2)):
+            cfg = dataclasses.replace(smoke_variant(ARCHS[arch]), compute_dtype="float32")
+            model = build_model(cfg, tp_degree=1)
+            params = lm_params_from_numpy(numpy_params(model.param_specs(), 0), "cuda")
+            tokens = torch.from_numpy(np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (2, s))).to("cuda")
+            full = (decoder_forward(cfg, params, {"tokens": tokens})[0] if cfg.family == "ssm"
+                    else hybrid_forward(cfg, params, {"tokens": tokens}))
+            r = ratio(stepwise(model, params, tokens), full, tol)
+            out[f"{arch}_chunked_vs_stepwise"] = {"tokens": s, "bar": tol, "err_over_bar": r}
+            gate(r <= 1.0, f"lm_families: {arch} chunked against stepwise {r} of the bar {tol}")
+
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (2, 40))).to("cuda")
+        logits = []
+        for chunk in (8, 16, 20):
+            cfg = dataclasses.replace(smoke_variant(ARCHS["rwkv6-1.6b"]),
+                                      compute_dtype="float32", ssm_chunk=chunk)
+            params = lm_params_from_numpy(numpy_params(build_model(cfg).param_specs(), 0), "cuda")
+            logits.append(decoder_forward(cfg, params, {"tokens": tokens})[0])
+        inv = max(ratio(lg, logits[0], 1e-3) for lg in logits[1:])
+        out["rwkv6_chunk_invariance"] = {"chunks": [8, 16, 20], "err_over_bar": inv}
+        gate(inv <= 1.0, f"lm_families: rwkv6 chunk-size invariance {inv} of the bar 1e-3")
+
+        rng = np.random.default_rng(5)
+        b, s, h, d = 1, 100, 2, 4
+        r, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+        u = rng.standard_normal((h, d)).astype(np.float32)
+        state = rng.standard_normal((b, h, d, d)).astype(np.float32)
+        logw = np.full((b, s, h, d), -2.0, np.float32)
+        c4 = {}
+        for chunk in (16, 64):
+            args = [torch.from_numpy(a) for a in (r, k, v, logw, u, state)]
+            host = rwkv6._wkv_chunked(*args, chunk)[0]
+            card = rwkv6._wkv_chunked(*(a.cuda() for a in args), chunk)[0].cpu()
+            hfin = torch.isfinite(host).all(-1).all(-1)[0]
+            cfin = torch.isfinite(card).all(-1).all(-1)[0]
+            agree = float(_rel(card[:, cfin].numpy(), host[:, hfin].numpy())) if bool(
+                cfin.any()) else 0.0
+            c4[chunk] = {"finite_rows": int(cfin.sum()), "same_rows": bool(torch.equal(hfin, cfin)),
+                         "max_rel_err_finite": agree}
+        out["rwkv6_chunk_overflow_c4"] = c4
+        gate(c4[16]["finite_rows"] == s and c4[64]["finite_rows"] == s - 64
+             and c4[16]["same_rows"] and c4[64]["same_rows"]
+             and max(c4[16]["max_rel_err_finite"], c4[64]["max_rel_err_finite"]) <= 1e-4,
+             f"lm_families: the chunked WKV's overflow (C4) differs from the host's: {c4}")
+
+        cfg = dataclasses.replace(smoke_variant(ARCHS["qwen3-moe-30b-a3b"]),
+                                  compute_dtype="float32")
+        host_params = numpy_params(moe.moe_specs(cfg), 3)
+        host_params["router"] = np.zeros_like(host_params["router"])
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32))
+        want, _ = moe.moe_apply(cfg, lm_params_from_numpy(host_params, "cpu"), x)
+        got, _ = moe.moe_apply(cfg, lm_params_from_numpy(host_params, "cuda"), x.cuda())
+        gates = torch.full((2, 24, cfg.num_experts), 1.0 / cfg.num_experts, device="cuda")
+        idx = moe.top_k_lower_index_first(gates, cfg.experts_per_token)[1]
+        c = moe._capacity(cfg, 24)
+        kept = (got.abs().sum(-1) > 0).cpu()
+        ties = {"experts_chosen": sorted(int(i) for i in idx.unique().cpu()),
+                "capacity": c, "kept_first_c_only": bool(kept[:, :c].all() and not kept[:, c:].any()),
+                "max_rel_err_vs_host": _rel(got.cpu().numpy(), want.numpy())}
+        out["moe_tied_gates"] = ties
+        gate(ties["experts_chosen"] == list(range(cfg.experts_per_token))
+             and ties["kept_first_c_only"] and ties["max_rel_err_vs_host"] <= 1e-4,
+             f"lm_families: MoE routing on tied gates {ties}")
+    return out
+
+
+def phase_lm_families():
+    """The LM harness's remaining families (A17b): (a) all ten
+    architectures at smoke width in float32 against pinned JAX numbers;
+    (b) the families' checks at smoke width; (c) the published widths
+    (``LM_FAMILY_CELLS``): rwkv6-1.6b served and trained at full depth and
+    zamba2-7b served at full depth and trained at 12 layers, both at
+    ssm_chunk 8 (ROADMAP C4, C5), with their scans' decay sums probed;
+    whisper-tiny served and trained at full size on 1,500 frames;
+    qwen3-moe-30b-a3b served at depth 24 and trained at depth 2;
+    llama4-maverick-400b-a17b served at depth 1; (d) one MoE layer of each
+    at 128 experts split into router, dense dispatch and combine, and
+    expert products.  (c) is the path whose kernel launches are counted: it
+    launches none of B1-B6."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+
+    gates = []
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    t_phase = time.perf_counter()
+    pins = {}
+    for arch in LM_ARCHS:
+        got = lm_pin_run(arch, "cuda")
+        errs = lm_pin_errors(got, JAX_LM_PINS[arch])
+        errs["decode_vs_host_same_cache"] = _rel_logits(got["decode"],
+                                                        got["decode_host_same_cache"])
+        pins[arch] = {"errors": errs, "got": got}
+        gate(max(v for k, v in errs.items() if k != "decode") <= LM_PIN_TOL
+             and errs["decode"] <= LM_PIN_DECODE_TOL, f"lm_families pins {arch}: {errs}")
+    t_pins = time.perf_counter() - t_phase
+    checks = _family_checks(gate)
+    kernels.reset_launches()
+    cells = {}
+    for arch, (serve_kw, train_kw) in LM_FAMILY_CELLS.items():
+        t_cell = time.perf_counter()
+        kw = dict(serve_kw)
+        sizes = [kw.pop(k, LM_SERVE[k]) for k in ("prompt", "decode_steps")]
+        cell = {"serve": _serve_cell(dataclasses.replace(ARCHS[arch], **kw), gate, *sizes)}
+        if train_kw is not None:
+            kw = dict(train_kw)
+            sizes = [kw.pop(k) for k in ("batch", "seq", "microbatches")]
+            t = {**LM_FAMILY_TRAIN, **({"lr": kw.pop("lr")} if "lr" in kw else {})}
+            cell["train"] = _train_cell(dataclasses.replace(ARCHS[arch], **kw), gate, *sizes,
+                                        t["steps"], t["lr"], t["warmup"])
+        cell["cell_s"] = time.perf_counter() - t_cell
+        cells[arch] = cell
+    launches = dict(kernels.LAUNCHES)
+    moe_split = {arch: _moe_split(ARCHS[arch])
+                 for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")}
+    out = {"phase": "lm_families", "pins": pins, "pins_s": t_pins, "checks": checks,
+           "cells": cells, "moe_split": moe_split, "launches": launches,
            "phase_s": time.perf_counter() - t_phase,
            "failed_gates": [what for ok, what in gates if not ok]}
     emit(out)
@@ -4526,7 +4994,8 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "trace_drops",
+               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "lm_families",
+               "trace_drops",
                "quickstart", "kernels_offsets64")
 
 
@@ -4588,6 +5057,7 @@ def main(argv=None) -> int:
     served = phase_serve()
     sharded = phase_sharded()
     lm = phase_lm()
+    lm_families = phase_lm_families()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -4602,7 +5072,7 @@ def main(argv=None) -> int:
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
              "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"],
              "serve": served["launches"], "sharded": sharded["launches"],
-             "lm": lm["launches"]}
+             "lm": lm["launches"], "lm_families": lm_families["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -4650,6 +5120,7 @@ def run_only(only) -> int:
               "serve": phase_serve,
               "sharded": phase_sharded,
               "lm": phase_lm,
+              "lm_families": phase_lm_families,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

@@ -12,6 +12,7 @@ Logical axes used across the stack:
   kv      — kv heads × head_dim
   mlp     — feed-forward hidden
   vocab   — vocabulary
+  expert  — MoE expert; expert_mlp its feed-forward hidden
   layers  — stacked-block leading axis (one slice per layer)
   (None)  — replicated
 """
@@ -102,12 +103,18 @@ def _std(spec: P) -> float:
     return spec.scale / float(np.sqrt(max(fan_in, 1)))
 
 
+DRAW_SLICE = 1 << 30      # a leaf with more entries is drawn this many at a time
+
+
 def init_params(specs, generator: torch.Generator, device=None):
     """Real parameters for a spec tree: zeros, ones, or normal draws at the
     reference's law (``repro.models.layers._leaf_init``), drawn in float32
     from ``generator`` on the generator's device, then cast to each spec's
     dtype on ``device`` (the CUDA card unless the caller names another).
-    The draws are torch's, not JAX's."""
+    A leaf of more than ``DRAW_SLICE`` entries (an MoE layer's experts at
+    published widths) is drawn and cast a slice of its flat view at a
+    time, so the float32 draw never holds the whole leaf.  The draws are
+    torch's, not JAX's."""
     from ..core.assembly import resolve_device
 
     device = resolve_device(device)
@@ -117,9 +124,20 @@ def init_params(specs, generator: torch.Generator, device=None):
             return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                           device=generator.device)
-        return draw.mul_(_std(spec)).to(device=device, dtype=spec.dtype)
+        n = int(np.prod(spec.shape))
+        if n <= DRAW_SLICE:
+            draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                               device=generator.device)
+            return draw.mul_(_std(spec)).to(device=device, dtype=spec.dtype)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        flat = out.view(-1)
+        for start in range(0, n, DRAW_SLICE):
+            m = min(DRAW_SLICE, n - start)
+            draw = torch.randn(m, generator=generator, dtype=torch.float32,
+                               device=generator.device)
+            flat[start:start + m] = draw.mul_(_std(spec))
+            del draw
+        return out
 
     return tree_map(one, specs)
 

@@ -1,5 +1,5 @@
-"""Decoder-only transformer assembly, dense and VLM families (the torch port
-of ``repro.models.transformer``).
+"""Decoder-only transformer assembly: the dense, MoE, VLM and RWKV6 (``ssm``)
+families (the torch port of ``repro.models.transformer``).
 
 Blocks are *stacked* on a leading 'layers' axis, as in the reference, so
 parameter trees, checkpoints and :func:`~repro_torch.convert.lm_params_from_numpy`
@@ -10,8 +10,10 @@ layers in a Python loop; with ``cfg.remat`` each layer runs under
 the outputs of the non-batched matmuls, the reference's
 ``dots_with_no_batch_dims_saveable``.
 
-The MoE and SSM branches of the reference (``num_experts``, ``family="ssm"``)
-are not ported yet: they raise ``NotImplementedError``.
+A MoE layer's load-balancing loss is summed over the layers and enters
+``lm_loss`` as ``+ 0.01·aux``.  An RWKV6 forward or prefill starts every
+layer from a zero state; decode carries the per-layer states in the cache
+and updates them in place, as it writes the KV cache.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import rwkv6 as rwkv
 from .layers import P, dot_f32, flatten_with_paths, mlp_apply, mlp_specs, rms_norm, stack_specs
 
 __all__ = [
@@ -35,31 +39,31 @@ __all__ = [
     "decoder_cache_specs",
     "kv_repeat_for",
     "lm_loss",
+    "nll",
     "vocab_mask",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
-_A17B = "is not ported yet (ROADMAP A17b: the MoE, SSM, hybrid and audio families)"
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _dense_only(cfg) -> None:
-    if cfg.family == "ssm" or cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} block {_A17B}")
-
-
 def _block_specs(cfg):
-    _dense_only(cfg)
     d = cfg.d_model
-    return {
+    if cfg.family == "ssm":                       # rwkv6
+        return rwkv.rwkv6_block_specs(cfg)
+    block = {
         "ln1": P((d,), (None,), "ones"),
         "attn": attn.attention_specs(cfg),
         "ln2": P((d,), (None,), "ones"),
-        "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp),
     }
+    if cfg.num_experts:
+        block["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        block["mlp"] = mlp_specs(d, cfg.d_ff, cfg.mlp)
+    return block
 
 
 def vocab_mask(cfg, device=None):
@@ -116,12 +120,20 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _ffn(cfg, blk, h):
+    """The block's MLP, or its MoE layer: (out, aux loss or None)."""
+    if cfg.num_experts:
+        return moe_mod.moe_apply(cfg, blk["moe"], h)
+    return mlp_apply(blk["mlp"], h, cfg.mlp), None
+
+
 def _dense_block(cfg, blk, x, positions):
     h = rms_norm(x, blk["ln1"])
     a, _ = attn.attention_train(cfg, blk["attn"], h, positions)
     x = x + a
     h = rms_norm(x, blk["ln2"])
-    return x + mlp_apply(blk["mlp"], h, cfg.mlp)
+    m, aux = _ffn(cfg, blk, h)
+    return x + m, aux
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -154,31 +166,43 @@ def _unembed(cfg, params, x, cdt):
 
 
 def decoder_forward(cfg, params, batch):
-    """Full causal forward → (logits (B, S, padded_vocab) in float32, moe
-    aux loss 0.0)."""
-    _dense_only(cfg)
+    """Full causal forward → (logits (B, S, padded_vocab) in float32, the
+    MoE aux loss summed over the layers, a float32 scalar: 0 without
+    experts)."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = _embed_inputs(cfg, params, batch, cdt)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
 
     def layer(x, blk):
+        if cfg.family == "ssm":
+            return rwkv.rwkv6_block(cfg, blk, x, rwkv.zero_state(cfg, b, cdt, x.device))[0], None
         return _dense_block(cfg, blk, x, positions)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in _layers(params["blocks"]):
-        x = _run_layer(cfg, layer, x, blk)
-    return _unembed(cfg, params, x, cdt), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _run_layer(cfg, layer, x, blk)
+        if a is not None:
+            aux = aux + a.float()
+    return _unembed(cfg, params, x, cdt), aux
+
+
+def nll(logits, labels):
+    """Mean next-token negative log-likelihood of float32 logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - true)
 
 
 def lm_loss(cfg, params, batch):
-    logits, _ = decoder_forward(cfg, params, batch)
-    labels = batch["labels"].long()
+    logits, aux = decoder_forward(cfg, params, batch)
     if cfg.frontend == "patch_embed" and "vision_embeds" in batch:
         # loss only over text positions (vision prefix predicts nothing)
         logits = logits[:, batch["vision_embeds"].shape[1]:]
-    lse = torch.logsumexp(logits, dim=-1)
-    true = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(lse - true)
+    loss = nll(logits, batch["labels"])
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +222,8 @@ def kv_repeat_for(cfg, tp_degree: int = 16) -> int:
 
 
 def decoder_cache_specs(cfg, batch: int, max_len: int, tp_degree: int = 16):
-    _dense_only(cfg)
+    if cfg.family == "ssm":
+        return stack_specs(rwkv.rwkv6_state_specs(cfg, batch), cfg.num_layers)
     rep = kv_repeat_for(cfg, tp_degree)
     per_layer = attn.init_kv_cache_specs(cfg, batch, max_len, rep, tp_degree=tp_degree)
     return stack_specs(per_layer, cfg.num_layers)
@@ -206,12 +231,19 @@ def decoder_cache_specs(cfg, batch: int, max_len: int, tp_degree: int = 16):
 
 def decoder_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
     """Run the full prompt, return (last-token logits (B, 1, V) float32,
-    cache {"k", "v"}: (L, B, max_len, KV·rep, D) bfloat16, zero past the
-    prompt)."""
-    _dense_only(cfg)
+    cache): {"k", "v"}: (L, B, max_len, KV·rep, D) bfloat16, zero past the
+    prompt; for RWKV6 the states after the prompt, {"wkv"} (L, B, H, D, D)
+    float32 and {"shift", "shift_c"} (L, B, d) in the compute dtype."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = _embed_inputs(cfg, params, batch, cdt)
     b, s, _ = x.shape
+    if cfg.family == "ssm":
+        states = []
+        for blk in _layers(params["blocks"]):
+            x, st = rwkv.rwkv6_block(cfg, blk, x, rwkv.zero_state(cfg, b, cdt, x.device))
+            states.append(st)
+        cache = {key: torch.stack([st[key] for st in states]) for key in states[0]}
+        return _unembed(cfg, params, x[:, -1:], cdt), cache
     positions = _positions(b, s, x.device)
     rep = kv_repeat_for(cfg, tp_degree)
     shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads * rep, cfg.head_dim)
@@ -222,7 +254,7 @@ def decoder_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
         a, (k, v) = attn.attention_train(cfg, blk["attn"], h, positions)
         x = x + a
         h = rms_norm(x, blk["ln2"])
-        x = x + mlp_apply(blk["mlp"], h, cfg.mlp)
+        x = x + _ffn(cfg, blk, h)[0]
         if rep > 1:
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
@@ -234,9 +266,14 @@ def decoder_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
 def decoder_decode(cfg, params, batch, cache, tp_degree: int = 16):
     """One decode step: batch = {tokens (B, 1), cache_len (a host int)} →
     (logits (B, 1, V) float32, cache), the cache updated in place."""
-    _dense_only(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     x = F.embedding(batch["tokens"], params["embed"]).to(cdt)
+    if cfg.family == "ssm":
+        for blk, st in zip(_layers(params["blocks"]), _layers(cache)):
+            x, new = rwkv.rwkv6_decode_step(cfg, blk, x, st)
+            for key, t in st.items():
+                t.copy_(new[key])
+        return _unembed(cfg, params, x, cdt), cache
     cache_len = int(batch["cache_len"])
     rep = kv_repeat_for(cfg, tp_degree)
     for blk, k_l, v_l in zip(_layers(params["blocks"]), torch.unbind(cache["k"], 0),
@@ -245,5 +282,5 @@ def decoder_decode(cfg, params, batch, cache, tp_degree: int = 16):
         a, _, _ = attn.attention_decode(cfg, blk["attn"], h, k_l, v_l, cache_len, rep)
         x = x + a
         h = rms_norm(x, blk["ln2"])
-        x = x + mlp_apply(blk["mlp"], h, cfg.mlp)
+        x = x + _ffn(cfg, blk, h)[0]
     return _unembed(cfg, params, x, cdt), cache

@@ -122,17 +122,17 @@ def test_optimizer_steps_match_jax(name):
 # train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "nemotron-4-340b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "nemotron-4-340b", "llama4-maverick-400b-a17b"])
 def test_make_train_step_matches_jax(arch):
     """The reference's step and the port's, four times from the same state
     on the same batch (``chip_smoke.lm_pin_case``): loss, grad norm and lr
     of each step and every parameter after them within 1e-4 of scale.
-    nemotron-4 runs Adafactor with two microbatches accumulated in
-    bfloat16."""
+    nemotron-4 and llama4-maverick (its MoE aux term in the loss) run
+    Adafactor with two microbatches accumulated in bfloat16."""
     from repro_torch.optim import make_optimizer as t_make_optimizer
 
     cfg, host, hbatch = chip_smoke.lm_pin_case(arch)
-    assert cfg.grad_accum("pin") == (2 if arch == "nemotron-4-340b" else 1)
+    assert cfg.grad_accum("pin") == (2 if cfg.grad_dtype == "bfloat16" else 1)
     model = build_model(cfg)
     state = {"params": lm_params_from_numpy(host, "cpu"),
              "opt": init_params(t_make_optimizer(cfg.optimizer).init_specs(model.param_specs()),
@@ -151,6 +151,54 @@ def test_make_train_step_matches_jax(arch):
     jflat = _jflat(jparams)
     for path, leaf in flatten_with_paths(state["params"]):
         assert _err(_np(leaf), jflat[path]) <= 1e-4, path
+
+
+def test_rwkv6_train_step_matches_jax_from_each_state():
+    """rwkv6's AdamW step against the reference's, one step at a time from
+    the reference's own state after each of its steps (params, moments,
+    step count): loss, grad norm and lr within 1e-4, and each parameter's
+    update within 1e-2 of the learning rate.
+
+    The smoke RWKV6 is ill-conditioned (a grad norm of 2,029 at the first
+    step, the bonus u's gradient 1,052), so chained steps would measure
+    that conditioning: a 3e-6 difference in the loss after one step is
+    2.2e-4 of the grad norm after the next, in either package.  And
+    AdamW's first update, lr·g/(|g| + ε), takes the sign of an element
+    whose gradient sits at the rounding floor: at most two such elements
+    of the 132,672 (one of ``embed``, one of ``wb``) turn the other way."""
+    arch = "rwkv6-1.6b"
+    cfg, host, hbatch = chip_smoke.lm_pin_case(arch)
+    jcfg = dataclasses.replace(smoke_variant(J_ARCHS[arch]), **chip_smoke.lm_pin_overrides(arch))
+    b, s = chip_smoke.LM_PIN_SHAPE
+    shape = ShapeSpec("pin", "train", s, b)
+    jopt = j_make_optimizer(jcfg.optimizer)
+    jstate = {"params": jax.tree.map(jnp.asarray, host),
+              "opt": j_init_params(jopt.init_specs(j_build(jcfg).param_specs()),
+                                   jax.random.PRNGKey(0)),
+              "step": jnp.int32(0)}
+    jstep = jax.jit(j_make_train_step(jcfg, shape, **chip_smoke.LM_PIN_TRAIN))
+    step = make_train_step(cfg, shape, **chip_smoke.LM_PIN_TRAIN)
+    batch = {k: torch.from_numpy(v) for k, v in hbatch.items()}
+    jbatch = {k: jnp.asarray(v) for k, v in hbatch.items()}
+    for i in range(chip_smoke.LM_PIN_STEPS + 1):
+        host_state = jax.tree.map(np.asarray, jstate)
+        state = lm_params_from_numpy(host_state, "cpu")
+        state["step"] = torch.tensor(int(host_state["step"]), dtype=torch.int32)
+        jstate, jm = jstep(jstate, jbatch)
+        state, tm = step(state, batch)
+        assert abs(float(tm["loss"]) / float(jm["loss"]) - 1) <= 1e-4, i
+        assert abs(float(tm["grad_norm"]) / float(jm["grad_norm"]) - 1) <= 1e-4, i
+        assert np.float32(tm["lr"]) == np.float32(jm["lr"]), i
+        lr = tm["lr"]
+        before, want = _jflat(host_state["params"]), _jflat(jstate["params"])
+        flips = 0
+        for path, leaf in flatten_with_paths(state["params"]):
+            d_port = _np(leaf).astype(np.float64) - before[path]
+            d_jax = np.asarray(want[path], np.float64) - before[path]
+            flip = np.sign(d_port) != np.sign(d_jax)
+            flips += int(flip.sum())
+            assert np.all(np.abs(d_port - d_jax)[~flip] <= 1e-2 * lr), (i, path)
+        assert flips <= (2 if i == 0 else 0), (i, flips)
 
 
 def test_grad_accum_equivalence():
@@ -394,9 +442,9 @@ def _jax_pin_run(arch: str):
 
 @pytest.mark.parametrize("arch", chip_smoke.LM_ARCHS)
 def test_chip_smoke_lm_pins_match_jax(arch):
-    """``chip_smoke.py`` holds the card to JAX numbers pinned for the five
-    ported architectures (the card machine has no JAX): the JAX package
-    meets them to 1e-6, and the port on the CPU at the card's gate (1e-4)."""
+    """``chip_smoke.py`` holds the card to JAX numbers pinned for all ten
+    architectures (the card machine has no JAX): the JAX package meets them
+    to 1e-6, and the port on the CPU at the card's gate (1e-4)."""
     pins = chip_smoke.JAX_LM_PINS[arch]
     jerr = chip_smoke.lm_pin_errors(_jax_pin_run(arch)[0], pins)
     assert max(jerr.values()) <= 1e-6, jerr
@@ -405,14 +453,17 @@ def test_chip_smoke_lm_pins_match_jax(arch):
 
 
 def test_lm_modules_load_neither_jax_nor_repro():
-    """The LM modules of the port, and a launcher run on the CPU, load
-    neither JAX nor the JAX package."""
+    """The LM modules of the port (the MoE, RWKV6, Mamba2, hybrid and
+    encoder–decoder families among them), and a launcher run on the CPU,
+    load neither JAX nor the JAX package."""
     import subprocess
 
     code = (
         "import sys\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.optim, repro_torch.train\n"
         "import repro_torch.data, repro_torch.checkpoint, repro_torch.convert\n"
+        "import repro_torch.models.moe, repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
+        "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
         "from repro_torch.launch.train import main\n"
         "main(['--smoke', '--steps', '2', '--seq-len', '32', '--batch', '2', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
