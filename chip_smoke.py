@@ -187,9 +187,23 @@ Phases, one JSON line each:
    memory, profiled idle shares); one MoE layer of each at 128 experts
    timed by its router, dense dispatch and combine, and expert products.
    The path launches none of B1-B6;
-23. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+23. lm_layout — the LM's 2-D layout on DTensor and its dry-run tooling
+   (A17c): qwen3-4b at its published widths and depth 8 on a (1, 1) mesh of
+   one NCCL rank, ``jit_train_step`` against ``make_train_step`` from the
+   same draw (bit-equal losses, or 1e-6), with the op counter's roofline;
+   depth 2 on four gloo ranks on the card, a (2, 2) mesh: 3 steps equal on
+   every rank, every loss and grad norm within 5e-3 of one rank's, the
+   collective bytes tapped where DTensor calls them and equal to the op
+   counter's, the elastic reshard of the weights (2, 2) → (4, 1) → (1, 4)
+   bit-equal, the sharded prefill and 8 decode steps in bfloat16 compute
+   within two bf16 ulps of one rank's (and in float32 compute within
+   1e-4 and one ulp), a step split into compute and collectives; the
+   dry-run of qwen3-4b and the perf variants baseline, seqpar and dp_attn
+   on the host (started before the first phase); the launcher under
+   torchrun with resume; none of B1-B6;
+24. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-24. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+25. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -212,7 +226,7 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 first n = 64 assembly and solve, and the time per θ step); or to try
 ``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
 ``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``lm``, ``lm_families``,
-``quickstart`` and
+``lm_layout``, ``quickstart`` and
 ``kernels_offsets64`` alone; ``trace_drops`` runs only
 so: how often a profiler trace misses a B1/B2 launch that the wrappers
 counted, on the matrix-free gate's window, by how the trace is opened
@@ -225,7 +239,9 @@ line, never with the full run's ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
+import contextlib
 import json
 import math
 import re
@@ -4879,6 +4895,701 @@ def phase_lm_families():
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm_layout: the LM's 2-D layout on DTensor and the dry-run tooling (A17c)
+# ---------------------------------------------------------------------------
+
+# (a) the `lm` phase's train cell on a (1, 1) mesh of one NCCL rank
+LAYOUT_ONE = {"layers": 8, "batch": 8, "seq": 512, "microbatches": 2, "steps": 10,
+              "lr": 3e-4, "warmup": 5}
+LAYOUT_ONE_TOL = 1e-6                  # relative, if the losses are not bit-equal
+# (b) four gloo ranks on the one card, a (2, 2) mesh
+LAYOUT_FOUR = {"layers": 2, "batch": 8, "seq": 128, "steps": 3, "lr": 3e-4, "warmup": 1,
+               "prefill_batch": 4, "prompt": 128, "decode_steps": 8}
+LAYOUT_FOUR_TOL = 5e-3                 # relative to the one-rank run: bf16 compute, TP sums
+LAYOUT_LOGITS_TOL = 2.0 ** -7          # bf16 compute: two bf16 ulps of the logits' scale
+# float32 compute on the same bf16 weights: prefill 1e-4 of scale, decode one
+# bf16 ulp (it reads the bf16 cache) — the CPU tests' bars
+LAYOUT_LOGITS_F32_TOL = (1e-4, 2.0 ** -8)
+# (c) the dry-run on the host, and (d) the launcher under torchrun
+LAYOUT_DRYRUN_ARCH = "qwen3-4b"
+LAYOUT_PERF = ("train_4k", "baseline,seqpar,dp_attn")
+LAYOUT_LAUNCH = {"first": 6, "second": 10, "every": 3, "lr": 3e-2}
+LAYOUT_GROUP_TIMEOUT_S = 120
+
+
+class _CollectiveTap:
+    """The functional collectives DTensor issues, tapped where it calls
+    them (``torch.distributed._functional_collectives``): their bytes by
+    kind (results; the operand of a reduce-scatter), their count, and —
+    with ``timed`` — their wall time between two device synchronisations
+    (gloo stages a CUDA tensor through host memory)."""
+
+    # the names under which torch's releases have DTensor call them
+    KINDS = {"all_reduce": "all-reduce", "all_gather_tensor": "all-gather",
+             "all_gather_tensor_autograd": "all-gather", "all_gather_single": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "reduce_scatter_tensor_autograd": "reduce-scatter",
+             "reduce_scatter_single": "reduce-scatter",
+             "all_to_all_single": "all-to-all", "all_to_all_single_autograd": "all-to-all"}
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.bytes = {k: 0 for k in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                                     "collective-permute")}
+        self.counts = dict.fromkeys(self.bytes, 0)
+        self.seconds = 0.0
+        self._saved = {}
+        self._depth = 0
+
+    def __enter__(self):
+        import torch.distributed._functional_collectives as funcol
+        import torch.distributed.tensor._collective_utils as cu
+        import torch.distributed.tensor.placement_types as pt
+
+        for name, kind in self.KINDS.items():
+            fn = getattr(funcol, name, None)
+            if fn is not None:
+                self._saved[(funcol, name)] = fn
+                setattr(funcol, name, self._wrap(fn, kind))
+        # the all-to-all of a Shard(i) → Shard(j) redistribute, where DTensor
+        # calls it through its own helper (a custom op on a CUDA mesh; on a
+        # CPU mesh the helper all-gathers through the functions above)
+        for mod in (cu, pt):
+            fn = getattr(mod, "shard_dim_alltoall", None)
+            if fn is not None:
+                self._saved[(mod, "shard_dim_alltoall")] = fn
+                setattr(mod, "shard_dim_alltoall", self._wrap(fn, "all-to-all", helper=True))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self._saved.items():
+            setattr(mod, name, fn)
+
+    def _wrap(self, fn, kind, helper: bool = False):
+        def tapped(tensor, *args, **kwargs):
+            before = sum(self.counts.values())
+            timed = self.timed and not self._depth
+            self._depth += 1
+            try:
+                if timed:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out = fn(tensor, *args, **kwargs)
+                if timed:
+                    if hasattr(out, "wait"):
+                        out = out.wait()
+                    torch.cuda.synchronize()
+                    self.seconds += time.perf_counter() - t0
+            finally:
+                self._depth -= 1
+            if helper and sum(self.counts.values()) > before:
+                return out              # the helper's own collectives were tapped
+            src = tensor if kind == "reduce-scatter" else out
+            self.bytes[kind] += src.numel() * src.element_size()
+            self.counts[kind] += 1
+            return out
+
+        return tapped
+
+
+def _layout_cfg(layers: int, **kw):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS["qwen3-4b"], num_layers=layers, **kw)
+
+
+def _layout_state(specs, shardings, seed: int):
+    """A train state drawn on the card from ``seed`` (every rank the same
+    draw): the parameters drawn whole and placed (``distribute_tree``: each
+    rank keeps its shard), the optimizer's zeros allocated shard by shard;
+    without shardings the whole state."""
+    from repro_torch.models.layers import init_params
+    from repro_torch.sharding import distribute_tree
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = init_params(specs["params"], gen, "cuda")
+    if shardings is None:
+        opt = init_params(specs["opt"], gen, "cuda")
+        return {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32)}
+    params = distribute_tree(params, shardings["params"])
+    opt = _zeros_placed(specs["opt"], shardings["opt"])
+    return {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32)}
+
+
+def _zeros_placed(specs, shardings):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if isinstance(specs, dict):
+        return {k: _zeros_placed(specs[k], shardings[k]) for k in specs}
+    sh = shardings
+    local, _ = compute_local_shape_and_global_offset(specs.shape, sh.mesh, sh.placements)
+    return DTensor.from_local(torch.zeros(local, dtype=specs.dtype, device="cuda"), sh.mesh,
+                              sh.placements, run_check=False, shape=torch.Size(specs.shape),
+                              stride=torch.empty(specs.shape, device="meta").stride())
+
+
+def _layout_batches(cfg, seq: int, batch: int, n: int) -> list:
+    from repro_torch.data import SyntheticLMData
+
+    data = SyntheticLMData(cfg.vocab_size, seq, batch)
+    return [next(data) for _ in range(n)]
+
+
+def _layout_steps(step, state, batches, place) -> tuple:
+    """``len(batches)`` steps: (state, losses, grad norms, wall seconds)."""
+    losses, norms, walls = [], [], []
+    for b in batches:
+        b = place(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return state, losses, norms, walls
+
+
+def _layout_one(rank: int, size: int) -> dict:
+    """(a) qwen3-4b at its published widths and depth 8 on a (1, 1) mesh of
+    one NCCL rank: ``jit_train_step`` against ``make_train_step`` from the
+    same draw, 10 steps each; then one step under the op counter."""
+    from repro_torch.analysis.op_cost import count_ops
+    from repro_torch.analysis.roofline import analyze
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import RULES_SINGLE_POD, distribute_tree
+    from repro_torch.train import jit_train_step, make_train_step
+
+    t = LAYOUT_ONE
+    cfg = _layout_cfg(t["layers"], microbatches={"lm_layout": t["microbatches"]})
+    shape = ShapeSpec("lm_layout", "train", t["seq"], t["batch"])
+    kw = {"lr": t["lr"], "warmup": t["warmup"], "total_steps": t["steps"]}
+    batches = _layout_batches(cfg, t["seq"], t["batch"], t["steps"] + 1)
+    out = {}
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+    # the unsharded step first, then the same draw on the (1, 1) mesh
+    step = make_train_step(cfg, shape, **kw)
+    from repro_torch.train import make_train_state_specs
+
+    specs = make_train_state_specs(cfg)
+    state = _layout_state(specs, None, LM_PIN_SEED)
+    state, losses, norms, walls = _layout_steps(step, state, batches[:-1], on_card)
+    out["plain"] = {"losses": losses, "grad_norms": norms, "step_ms": [w * 1e3 for w in walls],
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    sstep, specs, state_sh, batch_sh = jit_train_step(cfg, shape, mesh, RULES_SINGLE_POD, **kw)
+    state = _layout_state(specs, state_sh, LM_PIN_SEED)
+    state, losses, norms, walls = _layout_steps(
+        sstep, state, batches[:-1], lambda b: distribute_tree(on_card(b), batch_sh))
+    out["sharded"] = {"losses": losses, "grad_norms": norms,
+                      "step_ms": [w * 1e3 for w in walls],
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    # one more step under the op counter: the port's roofline of this cell
+    batch = distribute_tree(on_card(batches[-1]), batch_sh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with count_ops() as counter:
+        sstep(state, batch)
+    torch.cuda.synchronize()
+    rep = analyze(counter.cost, arch="qwen3-4b", shape="lm_layout", mesh_name="1x1", chips=1,
+                  model_flops=model_flops_for(cfg, shape))
+    out["roofline"] = {**{k: v for k, v in rep.row().items() if k != "collectives"},
+                       "counted_step_ms": (time.perf_counter() - t0) * 1e3,
+                       "collective_bytes": rep.collective_bytes,
+                       "bytes_upper": counter.cost.bytes_upper}
+    out["launches"] = dict(_kernel_launches())
+    return out
+
+
+def _kernel_launches() -> dict:
+    from repro_torch import kernels
+
+    return kernels.LAUNCHES
+
+
+def _layout_four(rank: int, size: int) -> dict:
+    """(b) qwen3-4b at its published widths and depth 2 on four gloo ranks
+    on the one card, a (2, 2) mesh: 3 steps (rank 0 also runs the one-rank
+    step from the same draw), one step under the op counter and the
+    collective tap, the elastic reshard of the weights, and the sharded
+    prefill and decode on the bfloat16 weights, in the configuration's
+    bfloat16 compute and in float32 (rank 0 also serves the gathered
+    weights on one rank)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.op_cost import count_ops
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import flatten_with_paths, tree_map
+    from repro_torch.sharding import RULES_SINGLE_POD, distribute_tree, make_shardings
+    from repro_torch.train import jit_train_step, make_train_state_specs, make_train_step
+    from repro_torch.train.serve_step import make_decode_fn, make_prefill_fn
+
+    t = LAYOUT_FOUR
+    cfg = _layout_cfg(t["layers"])
+    shape = ShapeSpec("lm_layout_four", "train", t["seq"], t["batch"])
+    kw = {"lr": t["lr"], "warmup": t["warmup"], "total_steps": t["steps"]}
+    batches = _layout_batches(cfg, t["seq"], t["batch"], t["steps"] + 1)
+    mesh = make_host_mesh(2, 2, device_type="cuda")
+    out = {"rank": rank}
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+    step, specs, state_sh, batch_sh = jit_train_step(cfg, shape, mesh, RULES_SINGLE_POD, **kw)
+    state = _layout_state(specs, state_sh, LM_PIN_SEED)
+    place = lambda b: distribute_tree(on_card(b), batch_sh)                 # noqa: E731
+    state, losses, norms, walls = _layout_steps(step, state, batches[:-1], place)
+    out["train"] = {"losses": losses, "grad_norms": norms, "step_ms": [w * 1e3 for w in walls]}
+
+    # one step with the collectives tapped (bytes, count) under the op counter,
+    # then one with them timed between synchronisations
+    batch = place(batches[-1])
+    with _CollectiveTap() as tap, count_ops() as counter:
+        step(state, batch)
+    out["collectives"] = {"tapped_bytes": tap.bytes, "tapped_counts": tap.counts,
+                          "counted_bytes": counter.cost.collective_by_kind,
+                          "counted_counts": counter.cost.collective_counts,
+                          "counted_flops": counter.cost.flops,
+                          "counted_bytes_primary": counter.cost.bytes}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _CollectiveTap(timed=True) as timed:
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["split"] = {"step_ms": wall * 1e3, "collectives_ms": timed.seconds * 1e3,
+                    "compute_ms": (wall - timed.seconds) * 1e3, "collectives": timed.counts}
+
+    # the one-rank run from the same draw (rank 0; the others wait)
+    if rank == 0:
+        ref = _layout_state(make_train_state_specs(cfg), None, LM_PIN_SEED)
+        ref, rl, rn, rw = _layout_steps(make_train_step(cfg, shape, **kw), ref,
+                                        batches[:-1], on_card)
+        out["one_rank"] = {"losses": rl, "grad_norms": rn, "step_ms": [w * 1e3 for w in rw]}
+        del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # elastic reshard of the trained weights and step: (2, 2) → (4, 1) → (1, 4)
+    # (the optimizer state takes the same path; the CPU tests restore it too,
+    # and its 7.8 GB read by four ranks would double the phase)
+    ckpt = os.path.join(os.environ["TG_LAYOUT_DIR"], "reshard")
+    mgr = CheckpointManager(ckpt, max_to_keep=1)
+    weights = {"params": state["params"], "step": state["step"]}
+    wspecs = {"params": specs["params"], "step": specs["step"]}
+    t0 = time.perf_counter()
+    mgr.save(1, weights, extra={"data": {"step": t["steps"], "seed": 0}}, blocking=True)
+    dist.barrier()
+    out["save_s"] = time.perf_counter() - t0
+    equal = {}
+    for data, model in ((4, 1), (1, 4)):
+        m2 = make_host_mesh(data, model, device_type="cuda")
+        t0 = time.perf_counter()
+        restored = mgr.restore(1, wspecs, device="cuda",
+                               shardings=make_shardings(wspecs, m2, RULES_SINGLE_POD))
+        same = True
+        for (p, a), (_, b) in zip(flatten_with_paths(weights), flatten_with_paths(restored)):
+            full_a = a.full_tensor() if hasattr(a, "full_tensor") else a
+            full_b = b.full_tensor() if hasattr(b, "full_tensor") else b
+            same = same and torch.equal(full_a.cpu() if full_a.dim() == 0 else full_a,
+                                        full_b.to(full_a.device))
+            same = same and (b.dim() == 0 or b.device_mesh == m2)
+            del full_a, full_b
+        equal[f"{data}x{model}"] = {"bit_equal": same, "restore_s": time.perf_counter() - t0}
+        del restored
+    out["reshard"] = {"equal": equal,
+                      "extra": mgr.restore_manifest(1)["extra"]}
+
+    # the sharded prefill and decode against one rank's, on the trained params
+    # served in bfloat16: in the configuration's bfloat16 compute, and in
+    # float32, where what is left is the bfloat16 cache's rounding
+    served = tree_map(lambda x: x.to(torch.bfloat16), state["params"])
+    del state, weights
+    torch.cuda.empty_cache()
+    b, s, n = t["prefill_batch"], t["prompt"], t["decode_steps"]
+    sshape = ShapeSpec("lm_layout_serve", "prefill", s + n, b)
+    rng = np.random.default_rng(LM_PIN_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + n)).astype(np.int32))
+    full = tree_map(lambda x: x.full_tensor(), served)
+    out["serve"] = {}
+    for cdt in ("bfloat16", "float32"):
+        scfg = _layout_cfg(t["layers"], compute_dtype=cdt)
+        prefill, _ = make_prefill_fn(scfg, sshape, mesh=mesh, rules=RULES_SINGLE_POD)
+        decode, _, _ = make_decode_fn(scfg, sshape, mesh=mesh, rules=RULES_SINGLE_POD)
+        t0 = time.perf_counter()
+        logits, cache = prefill(served, {"tokens": toks[:, :s].to("cuda")})
+        got = [logits.full_tensor().float()]
+        for i in range(n):
+            logits, cache = decode(served, {"tokens": toks[:, s + i:s + i + 1].to("cuda"),
+                                            "cache_len": s + i}, cache)
+            got.append(logits.full_tensor().float())
+        torch.cuda.synchronize()
+        res = {"sharded_s": time.perf_counter() - t0}
+        del cache
+        if rank == 0:
+            model = build_model(scfg, tp_degree=2)
+            with torch.no_grad():
+                logits, cache = model.prefill(full, {"tokens": toks[:, :s].to("cuda")}, s + n)
+                want = [logits.float()]
+                for i in range(n):
+                    logits, cache = model.decode(
+                        full, {"tokens": toks[:, s + i:s + i + 1].to("cuda"), "cache_len": s + i},
+                        cache)
+                    want.append(logits.float())
+            v = scfg.vocab_size         # the real vocabulary: the padding holds −1e30
+            errs = [float((g[..., :v] - w[..., :v]).abs().max() / w[..., :v].abs().max())
+                    for g, w in zip(got, want)]
+            res.update(prefill_rel_err=errs[0], decode_rel_errs=errs[1:])
+            del cache, want
+        res["digest"] = _digest(torch.stack(got))
+        out["serve"][cdt] = res
+    out["launches"] = dict(_kernel_launches())
+    return out
+
+
+LAYOUT_JOBS = {"one": ("nccl", 1, _layout_one), "four": ("gloo", 4, _layout_four)}
+
+
+def _layout_rank(rank: int, size: int, backend: str, init_file: str, job: str, out) -> None:
+    """One rank of the ``lm_layout`` phase (the ``sharded`` phase's
+    pattern): a process group of ``backend`` over a file rendezvous, the
+    job on the card, its readings or its traceback put on ``out``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                                world_size=size,
+                                timeout=datetime.timedelta(seconds=LAYOUT_GROUP_TIMEOUT_S))
+        from repro_torch import kernels
+        from repro_torch.sharding.partitioning import gloo_cuda_collectives
+
+        kernels.reset_launches()
+        # several gloo ranks on the one card: DTensor's functional collectives
+        # through c10d's in-place ones (torch 2.11's functional all-gather
+        # crashes on a gloo group of CUDA tensors)
+        with gloo_cuda_collectives() if backend == "gloo" else contextlib.nullcontext():
+            res = LAYOUT_JOBS[job][2](rank, size)
+        dist.barrier()
+        out.put((rank, res, None))
+    except Exception:  # the rank's boundary: report the traceback, fail the phase
+        out.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _layout_world(job: str, timeout: float):
+    """Spawn the ranks of ``job`` (``LAYOUT_JOBS``) and wait for them:
+    (results by rank, errors, wall seconds)."""
+    import os
+    import queue
+
+    import torch.multiprocessing as tmp
+
+    backend, size, _ = LAYOUT_JOBS[job]
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    init = ROOT / "build" / f"rendezvous_{os.getpid()}_layout_{job}"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_layout_rank, args=(r, size, backend, str(init), job, results))
+             for r in range(size)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in range(size):
+            rank, res, err = results.get(timeout=timeout)
+            if err is None:
+                got[rank] = res
+            else:
+                errors.append(f"{job} rank {rank}:\n{err}")
+    except queue.Empty:
+        errors.append(f"{job}: {len(got)} of {size} ranks answered within {timeout} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        init.unlink(missing_ok=True)
+    return got, errors, time.perf_counter() - t0
+
+
+_LAYOUT_DRYRUN: dict = {}       # the dry-run subprocess, when the full run starts it early
+
+
+def _layout_dryrun_start(outdir):
+    """(c) The dry-run and the perf variants on the host, in a subprocess
+    started now (they need no card; the full run starts it before its
+    first phase, so that it runs beside the card's work): ``LAYOUT_DRYRUN_ARCH`` over the four
+    shapes on 16×16, its prefill_32k on 2×16×16 (its train_4k and
+    decode_32k there take 3 and 9 minutes of DTensor's sharding
+    propagation on a 3-D mesh, on the CPU), and ``LAYOUT_PERF``."""
+    import os
+
+    script = (
+        "import sys, time, json\n"
+        "from repro_torch.launch import dryrun, perf\n"
+        "t = {}\n"
+        f"a = {LAYOUT_DRYRUN_ARCH!r}\n"
+        f"out = {str(outdir)!r}\n"
+        "t0 = time.perf_counter()\n"
+        "r1 = dryrun.main(['--arch', a, '--out', out + '/dryrun_results_torch.json'])\n"
+        "r2 = dryrun.main(['--arch', a, '--shape', 'prefill_32k', '--multi-pod', '--append',\n"
+        "                  '--out', out + '/dryrun_results_torch.json'])\n"
+        "t['dryrun_s'] = time.perf_counter() - t0\n"
+        "t0 = time.perf_counter()\n"
+        f"r3 = perf.main(['--arch', a, '--shape', {LAYOUT_PERF[0]!r}, '--variants',\n"
+        f"                {LAYOUT_PERF[1]!r}, '--out', out + '/perf_results_torch.json'])\n"
+        "t['perf_s'] = time.perf_counter() - t0\n"
+        "print(json.dumps({'codes': [r1, r2, r3], **t}))\n"
+    )
+    import shutil
+
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(Path(sys.path[0])), "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen([sys.executable, "-c", script], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(outdir))
+
+
+def _layout_dryrun_stop() -> None:
+    """Kill the early-started dry-run if a phase before lm_layout failed."""
+    proc = _LAYOUT_DRYRUN.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _layout_dryrun_finish(proc, outdir, gate) -> dict:
+    from repro_torch.launch.dryrun import should_skip
+
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    gate(proc.returncode == 0, f"lm_layout dry-run: exit {proc.returncode}: {stderr[-2000:]}")
+    rows, perf_rows, summary = [], [], {}
+    try:
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        rows = json.loads((outdir / "dryrun_results_torch.json").read_text())
+        perf_rows = json.loads((outdir / "perf_results_torch.json").read_text())
+    except (ValueError, IndexError, OSError) as exc:
+        gate(False, f"lm_layout dry-run: no results ({exc}): {stderr[-1000:]}")
+    from repro_torch.configs import ARCHS, SHAPES
+
+    keep = ("arch", "shape", "mesh", "status", "reason", "error", "variant", "t_compute_s",
+            "t_memory_s", "t_collective_s", "bottleneck", "flops_per_rank", "bytes_per_rank",
+            "useful_flops_ratio", "roofline_fraction", "peak_memory_GiB", "run_seconds")
+    for r in rows + perf_rows:
+        ok = r["status"] == "ok" or (
+            r["status"] == "skip"
+            and r.get("reason") == should_skip(ARCHS[r["arch"]], SHAPES[r["shape"]]))
+        gate(ok, f"lm_layout dry-run row {r.get('arch')} {r.get('shape')} {r.get('mesh')} "
+                 f"{r.get('variant', '')}: {r['status']} {r.get('error', '')[:300]}")
+    gate(len(rows) == 5 and len(perf_rows) == len(LAYOUT_PERF[1].split(",")),
+         f"lm_layout dry-run: {len(rows)} rows, {len(perf_rows)} perf rows")
+    return {"summary": summary,
+            "rows": [{k: r[k] for k in keep if k in r} for r in rows],
+            "perf_rows": [{k: r[k] for k in keep if k in r} for r in perf_rows],
+            "collectives": {f"{r['shape']}/{r['mesh']}": r["collectives"]["by_kind"]
+                            for r in rows if r["status"] == "ok"}}
+
+
+def _layout_launcher(gate) -> dict:
+    """(d) ``repro_torch.launch.train`` under torchrun: four ranks over
+    gloo on the card, ``--smoke --data-axis 2 --model-axis 2``, then a
+    relaunch that resumes."""
+    import os
+    import shutil
+    import socket
+
+    ckpt = ROOT / "build" / "lm_layout_launch"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = LAYOUT_LAUNCH
+    env = {**os.environ, "PYTHONPATH": str(Path(sys.path[0])), "GLOO_SOCKET_IFNAME": "lo",
+           "OMP_NUM_THREADS": "1"}
+    runs = []
+    for steps in (t["first"], t["second"]):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "4",
+               "--master-addr", "127.0.0.1", "--master-port", str(port),
+               "-m", "repro_torch.launch.train", "--smoke", "--data-axis", "2",
+               "--model-axis", "2", "--steps", str(steps), "--seq-len", "64", "--batch", "8",
+               "--lr", str(t["lr"]), "--ckpt-dir", str(ckpt), "--ckpt-every", str(t["every"]),
+               "--log-every", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        lines = proc.stdout.splitlines()
+        losses = [float(m.group(2)) for m in
+                  (re.match(r"step\s+(\d+)\s+loss\s+(\S+)", ln) for ln in lines) if m]
+        from repro_torch.checkpoint import CheckpointManager
+
+        runs.append({"steps": steps, "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                     "losses": losses, "head": lines[:2], "tail": lines[-2:],
+                     "latest_step": CheckpointManager(str(ckpt)).latest_step(),
+                     "stderr": proc.stderr[-1500:] if proc.returncode else ""})
+    first, second = runs
+    gate(first["rc"] == 0 and second["rc"] == 0, f"lm_layout launcher: exit codes {runs}")
+    gate(first["latest_step"] == t["first"] and second["latest_step"] == t["second"],
+         f"lm_layout launcher: checkpoints at {first['latest_step']}, {second['latest_step']}")
+    gate(len(first["losses"]) == t["first"] and len(second["losses"]) == t["second"] - t["first"],
+         f"lm_layout launcher: {len(first['losses'])} and {len(second['losses'])} steps logged")
+    gate(any(f"[resume] restoring step {t['first']}" in ln for ln in second["head"]),
+         f"lm_layout launcher: the relaunch did not resume: {second['head']}")
+    every = first["losses"] + second["losses"]
+    gate(every and all(math.isfinite(x) for x in every)
+         and statistics.mean(every[-3:]) < statistics.mean(every[:3]),
+         f"lm_layout launcher: losses {every}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"runs": runs}
+
+
+def phase_lm_layout():
+    """The LM's 2-D layout on DTensor and its tooling (A17c): (a) qwen3-4b
+    at its published widths, depth 8, on a (1, 1) mesh of one NCCL rank —
+    ``jit_train_step`` against ``make_train_step`` from the same draw, 10
+    steps each, and the port's roofline of the cell from the op counter;
+    (b) qwen3-4b at depth 2 on four gloo ranks on the card, a (2, 2) mesh:
+    3 steps identical on every rank, every loss and grad norm within 5e-3
+    of one rank, the collective bytes by kind tapped and counted, the
+    elastic reshard (2, 2) → (4, 1) → (1, 4), the sharded prefill and 8
+    decode steps against one rank in bfloat16 and float32 compute, a step
+    split into compute and collectives; (c) the dry-run of qwen3-4b on
+    16×16 (and 2×16×16) and the perf variants baseline, seqpar and
+    dp_attn, on the host in a subprocess started first; (d) the launcher under
+    torchrun on four gloo ranks, with resume.  The path runs none of
+    B1-B6: each rank reports its launches."""
+    import os
+    import shutil
+
+    gates = []
+
+    def gate(cond, what):
+        gates.append((bool(cond), what))
+
+    t_phase = time.perf_counter()
+    smi, name = device_line()
+    outdir = ROOT / "build" / "lm_layout"
+    os.environ["TG_LAYOUT_DIR"] = str(outdir)
+    dry = _LAYOUT_DRYRUN.pop("proc", None) or _layout_dryrun_start(outdir)
+    worlds = {}
+    try:
+        for job, timeout in (("one", 600), ("four", 600)):
+            got, errors, wall = _layout_world(job, timeout)
+            worlds[job] = {"wall_s": wall, "errors": errors,
+                           "results": [got.get(r) for r in range(LAYOUT_JOBS[job][1])]}
+            gate(not errors, f"lm_layout {job}: " + "\n".join(errors))
+        launcher = _layout_launcher(gate)
+        dryrun = _layout_dryrun_finish(dry, outdir, gate)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+
+    one = four = None
+    if not worlds["one"]["errors"]:
+        a = worlds["one"]["results"][0]
+        pl, sh = a["plain"]["losses"], a["sharded"]["losses"]
+        bit_equal = pl == sh and a["plain"]["grad_norms"] == a["sharded"]["grad_norms"]
+        rel = max(abs(x / y - 1) for x, y in zip(sh + a["sharded"]["grad_norms"],
+                                                 pl + a["plain"]["grad_norms"]))
+        gate(bit_equal or rel <= LAYOUT_ONE_TOL,
+             f"lm_layout one: losses {sh} vs {pl} ({rel} relative)")
+        warm = {k: statistics.median(a[k]["step_ms"][1:]) for k in ("plain", "sharded")}
+        tokens = LAYOUT_ONE["batch"] * LAYOUT_ONE["seq"]
+        flops, _ = _lm_train_flops(_layout_cfg(LAYOUT_ONE["layers"]), tokens, LAYOUT_ONE["seq"])
+        roof = a["roofline"]
+        one = {"bit_equal": bit_equal, "max_rel_diff": rel, "warm_step_ms": warm,
+               "roofline": roof, "lm_phase_model_flops": flops,
+               "counted_over_lm_formula": roof["flops_per_rank"] / flops,
+               "t_bound_over_step": max(roof["t_compute_s"], roof["t_memory_s"])
+               / (warm["sharded"] / 1e3),
+               "t_compute_over_step": roof["t_compute_s"] / (warm["sharded"] / 1e3),
+               "t_memory_over_step": roof["t_memory_s"] / (warm["sharded"] / 1e3)}
+    if not worlds["four"]["errors"]:
+        ranks = worlds["four"]["results"]
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            gate(r["train"]["losses"] == r0["train"]["losses"]
+                 and r["train"]["grad_norms"] == r0["train"]["grad_norms"],
+                 f"lm_layout four: rank {r['rank']} differs {r['train']} {r0['train']}")
+            for cdt in ("bfloat16", "float32"):
+                gate(r["serve"][cdt]["digest"] == r0["serve"][cdt]["digest"],
+                     f"lm_layout four: rank {r['rank']}'s served logits differ ({cdt})")
+        rel = max(abs(x / y - 1) for x, y in
+                  zip(r0["train"]["losses"] + r0["train"]["grad_norms"],
+                      r0["one_rank"]["losses"] + r0["one_rank"]["grad_norms"]))
+        gate(rel <= LAYOUT_FOUR_TOL, f"lm_layout four: {rel} from one rank {r0['train']} "
+                                     f"{r0['one_rank']}")
+        for r in ranks:
+            c = r["collectives"]
+            gate(c["tapped_bytes"] == c["counted_bytes"],
+                 f"lm_layout four rank {r['rank']}: tapped {c['tapped_bytes']} counted "
+                 f"{c['counted_bytes']}")
+            gate(all(v["bit_equal"] for v in r["reshard"]["equal"].values())
+                 and r["reshard"]["extra"] == {"data": {"step": LAYOUT_FOUR["steps"], "seed": 0}},
+                 f"lm_layout four rank {r['rank']}: reshard {r['reshard']}")
+        bf, f32 = r0["serve"]["bfloat16"], r0["serve"]["float32"]
+        errs = {cdt: [r["prefill_rel_err"]] + r["decode_rel_errs"]
+                for cdt, r in (("bfloat16", bf), ("float32", f32))}
+        gate(max(errs["bfloat16"]) <= LAYOUT_LOGITS_TOL,
+             f"lm_layout four: served logits in bfloat16 compute {errs['bfloat16']}")
+        gate(f32["prefill_rel_err"] <= LAYOUT_LOGITS_F32_TOL[0]
+             and max(f32["decode_rel_errs"]) <= LAYOUT_LOGITS_F32_TOL[1],
+             f"lm_layout four: served logits in float32 compute {errs['float32']}")
+        four = {"max_rel_diff_vs_one_rank": rel, "served_rel_errs": errs,
+                "warm_step_ms": statistics.median(r0["train"]["step_ms"][1:]),
+                "one_rank_warm_step_ms": statistics.median(r0["one_rank"]["step_ms"][1:]),
+                "split": r0["split"], "collectives": r0["collectives"]}
+    launches = None
+    if not any(w["errors"] for w in worlds.values()):
+        launches = {k: sum(r["launches"][k] for w in worlds.values() for r in w["results"])
+                    for k in worlds["one"]["results"][0]["launches"]}
+        gate(not any(launches.values()), f"lm_layout: B1-B6 launched on the LM path {launches}")
+    out = {"phase": "lm_layout", "nvidia_smi": smi, "device": name, "one": one, "four": four,
+           "worlds": worlds, "launcher": launcher, "dryrun": dryrun, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase,
+           "failed_gates": [what for ok, what in gates if not ok]}
+    emit(out)
+    (outdir / "phase.json").write_text(json.dumps(out, indent=1, default=str))
+    for ok, what in gates:
+        check(ok, what)
+    return out
+
+
 def phase_trace_drops():
     """How often a torch.profiler trace misses a launch of B1 or B2 that
     the wrappers counted, and which records it loses: the matrix-free
@@ -4995,7 +5706,7 @@ def device_line() -> tuple[str, str]:
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
                "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "lm_families",
-               "trace_drops",
+               "lm_layout", "trace_drops",
                "quickstart", "kernels_offsets64")
 
 
@@ -5037,6 +5748,9 @@ def main(argv=None) -> int:
         emit({"phase": "device", "ptxas": f"src/repro_torch/kernels/csrc/{source}.cu",
               "kernels": report})
 
+    # the lm_layout phase's dry-run runs on one host core beside the phases
+    _LAYOUT_DRYRUN["proc"] = _layout_dryrun_start(ROOT / "build" / "lm_layout")
+    atexit.register(_layout_dryrun_stop)
     phase_kernels_small()
     phase_reference()
     prob, k, _, main_launches, _ = phase_main_path()
@@ -5058,6 +5772,7 @@ def main(argv=None) -> int:
     sharded = phase_sharded()
     lm = phase_lm()
     lm_families = phase_lm_families()
+    lm_layout = phase_lm_layout()
     phase_quickstart()
     phase_kernels_offsets64()
 
@@ -5072,7 +5787,8 @@ def main(argv=None) -> int:
              "batched": batched["coeff_batch"]["launches"], "matfree": matfree["launches"],
              "opt": opt["launches"], "pils": pils["launches"], "elemalg": elemalg["launches"],
              "serve": served["launches"], "sharded": sharded["launches"],
-             "lm": lm["launches"], "lm_families": lm_families["launches"]}
+             "lm": lm["launches"], "lm_families": lm_families["launches"],
+             "lm_layout": lm_layout["launches"]}
 
     print(smi)
     emit({"kernels": [
@@ -5121,6 +5837,7 @@ def run_only(only) -> int:
               "sharded": phase_sharded,
               "lm": phase_lm,
               "lm_families": phase_lm_families,
+              "lm_layout": phase_lm_layout,
               "trace_drops": phase_trace_drops,
               "quickstart": phase_quickstart,
               "kernels_offsets64": phase_kernels_offsets64}

@@ -12,7 +12,12 @@ checkpoint written by either package restores in the other:
   * **async save**: the device → host copy happens synchronously,
     serialization runs on a background thread so the train loop continues.
   * **restore** into a target tree: each leaf goes to its target's device
-    (or the given one) with the dtype it was saved with.
+    (or the given one) with the dtype it was saved with; given
+    ``shardings``, each leaf is placed onto the current mesh — the elastic
+    reshard: a checkpoint saved under one mesh restores under another.
+  * **sharded state**: ``save`` gathers each DTensor leaf with
+    ``full_tensor()``, a collective, so every rank calls ``save`` (on the
+    calling thread, before the background write); rank 0 writes.
   * retention: keep the latest ``max_to_keep``.
 
 bfloat16 leaves are refused on save: ``np.savez`` has no bfloat16, and the
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..models.layers import P, flatten_with_paths
+from ..sharding.partitioning import distribute_tree, is_dtensor
 
 __all__ = ["CheckpointManager"]
 
@@ -44,6 +50,12 @@ def _unflatten_like(tree, values: dict, prefix: tuple = ()):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten_like(t, values, prefix + (i,)) for i, t in enumerate(tree))
     return values["/".join(str(k) for k in prefix)]
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def _to_host(key: str, v) -> np.ndarray:
@@ -66,7 +78,16 @@ class CheckpointManager:
     def save(self, step: int, state, extra: dict | None = None,
              blocking: bool = False):
         self.wait()  # one in-flight save at a time
-        host_arrays = {k: _to_host(k, v) for k, v in _flatten(state).items()}
+        rank0 = _rank() == 0
+        host_arrays = {}
+        for k, v in _flatten(state).items():
+            if is_dtensor(v):
+                v = v.full_tensor()      # a collective: every rank gathers, rank 0 keeps it
+            if rank0:
+                host_arrays[k] = _to_host(k, v)
+            del v
+        if not rank0:
+            return
 
         def write():
             path = os.path.join(self.dir, f"step_{step:08d}")
@@ -118,13 +139,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target, device=None):
+    def restore(self, step: int, target, device=None, shardings=None):
         """Rebuild ``target``-structured state (a tree of tensors or of
         :class:`~repro_torch.models.layers.P` specs): each leaf on
         ``device`` if given, else on its target tensor's device (the CPU
-        for a spec), with the dtype it was saved with."""
+        for a spec), with the dtype it was saved with.  With ``shardings``
+        (a tree of :class:`~repro_torch.sharding.NamedSharding` of the same
+        structure) each leaf is then placed onto that sharding's mesh
+        (``distribute_tree``: every rank keeps its shard of the array it
+        read, with no collective), whatever mesh it was saved from."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         out = {}
+        flat_sh = _flatten(shardings) if shardings is not None else None
         with np.load(os.path.join(path, "arrays.npz")) as data:
             for key, like in _flatten(target).items():
                 arr = data[key]
@@ -132,8 +158,11 @@ class CheckpointManager:
                     raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
                                      f"the target {tuple(like.shape)}")
                 dev = device if device is not None else (
-                    "cpu" if isinstance(like, P) else like.device)
-                out[key] = torch.from_numpy(np.array(arr)).to(dev)
+                    "cpu" if isinstance(like, P) or is_dtensor(like) or like.device.type == "meta"
+                    else like.device)
+                leaf = torch.from_numpy(np.array(arr)).to(dev)
+                # placed leaf by leaf, so a rank holds one whole leaf at a time
+                out[key] = leaf if shardings is None else distribute_tree(leaf, flat_sh[key])
         return _unflatten_like(target, out)
 
     def restore_manifest(self, step: int) -> dict:

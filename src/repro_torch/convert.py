@@ -107,13 +107,26 @@ def params_from_numpy(tree, device=None):
     return convert(tree)
 
 
-def lm_params_from_numpy(tree, device=None):
+def lm_params_from_numpy(tree, device=None, *, specs=None, mesh=None, rules=None):
     """A nested dict/list/tuple of numpy arrays (an LM parameter or train
     state tree exported with ``jax.tree.map(np.asarray, params)``) → the same
     tree of tensors on ``device`` with each leaf's own dtype: float32 stays
     float32, int32 stays int32, and bfloat16 (``ml_dtypes``) comes across
     bit for bit through a ``uint16`` view.  (:func:`params_from_numpy`
-    widens every float to float64, which suits the FEM trees only.)"""
+    widens every float to float64, which suits the FEM trees only.)
+
+    With ``mesh`` and ``rules`` (and ``specs``, the tree's P-specs, for the
+    logical axes) the tree is placed onto the mesh instead: each leaf a
+    DTensor of which this rank keeps its own shard of the array every rank
+    holds (``make_shardings`` + ``distribute_tree``: no collective), a 0-d
+    leaf a host tensor."""
+    if mesh is not None:
+        from .sharding.partitioning import distribute_tree, make_shardings
+
+        if specs is None or rules is None:
+            raise ValueError("placing a tree on a mesh needs its specs and the rules")
+        return distribute_tree(lm_params_from_numpy(tree, "cpu"),
+                               make_shardings(specs, mesh, rules))
     device = resolve_device(device)
 
     def convert(t):

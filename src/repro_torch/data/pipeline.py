@@ -8,7 +8,10 @@ state (the step counter) is part of the checkpoint, so restarts are
 reproducible.
 
 :meth:`SyntheticLMData.device_iterator` keeps the reference's background
-prefetch thread and queue depth and copies each batch to a torch device.
+prefetch thread and queue depth and copies each batch to a torch device;
+:meth:`SyntheticLMData.sharded_iterator` does the same for a batch placed
+on a ``DeviceMesh`` (every rank makes the same global batch from the seed
+and keeps its own rows, so feeding a batch costs no collective).
 As in the reference, :meth:`state` counts the batches *made*, which the
 prefetch thread runs ahead of the batches consumed.
 """
@@ -79,14 +82,29 @@ class SyntheticLMData:
         background prefetch thread (overlaps host synthesis with step time)
         through a queue of depth ``prefetch``.  Closing the generator stops
         the thread."""
+        return self._prefetch(lambda host: {
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()})
+
+    def sharded_iterator(self, shardings: dict):
+        """Yield batches placed by ``shardings`` (a dict of
+        :class:`~repro_torch.sharding.NamedSharding` per input, from
+        ``make_shardings(model.batch_axes(shape), mesh, rules)``): DTensors
+        of which this rank holds its own rows, taken from the global batch
+        it made itself (``distribute_tree``: no collective), through the
+        same prefetch thread and queue."""
+        from ..sharding.partitioning import distribute_tree
+
+        return self._prefetch(lambda host: distribute_tree(
+            {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()},
+            {k: shardings[k] for k in host}))
+
+    def _prefetch(self, place):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def worker():
             while not stop.is_set():
-                host = next(self)
-                dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                       for k, v in host.items()}
+                dev = place(next(self))
                 while not stop.is_set():
                     try:
                         q.put(dev, timeout=0.1)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import P, dot_f32, rms_norm, rope
+from .layers import P, dot_f32, merge_heads, pad_dim1, rms_norm, rope, row_parallel, unflatten
 
 __all__ = ["attention_specs", "flash_attention", "attention_train", "attention_decode",
            "init_kv_cache_specs"]
@@ -51,9 +51,9 @@ def attention_specs(cfg) -> dict:
 def _project_qkv(cfg, params, x, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kv, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    q = unflatten(x @ params["wq"].to(x.dtype), -1, (h, hd))
+    k = unflatten(x @ params["wk"].to(x.dtype), -1, (kv, hd))
+    v = unflatten(x @ params["wv"].to(x.dtype), -1, (kv, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -72,13 +72,12 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0):
     g = h // kvh
     scale = _scale(d)
     # (B, KV, Sq·G, D): one batched product per chunk for every (b, kv) pair
-    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 1, 3, 4).reshape(b, kvh, sq * g, d)
+    qg = unflatten(q, 2, (kvh, g)).permute(0, 2, 1, 3, 4).reshape(b, kvh, sq * g, d)
 
     n_chunks = -(-skv // chunk)
     pad = n_chunks * chunk - skv
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k, v = pad_dim1(k, pad), pad_dim1(v, pad)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     offs = torch.arange(chunk, device=q.device)
 
@@ -103,7 +102,7 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0):
         acc = acc * alpha[..., None] + pv
         m_i = m_new
     out = acc / torch.clamp(l_i, min=1e-30)[..., None]
-    out = out.reshape(b, kvh, sq, g, d).permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
+    out = merge_heads(out.reshape(b, kvh, sq, g, d).permute(0, 2, 1, 3, 4), 2)
     return out.to(q.dtype)
 
 
@@ -113,8 +112,8 @@ def attention_train(cfg, params, x, positions):
     q, k, v = _project_qkv(cfg, params, x, positions)
     out = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     b, s, _, _ = out.shape
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return out @ params["wo"].to(x.dtype), (k, v)
+    out = merge_heads(out, 2)
+    return row_parallel(out, params["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +151,11 @@ def attention_decode(cfg, params, x, cache_k, cache_v, cache_len: int, kv_repeat
     kvh_eff = kvh * kv_repeat
     g = h // kvh_eff
     s_max = cache_k.shape[1]
-    qg = q.reshape(b, kvh_eff, g, hd)                                   # Sq = 1
+    qg = unflatten(q[:, 0], 1, (kvh_eff, g))                            # Sq = 1
     logits = dot_f32(qg, cache_k.to(q.dtype).permute(0, 2, 3, 1)) * _scale(hd)  # (B,KV,G,S)
     mask = torch.arange(s_max, device=x.device) <= cache_len
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = dot_f32(p.to(cache_v.dtype), cache_v.permute(0, 2, 1, 3))    # (B, KV, G, D)
-    out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+    out = merge_heads(merge_heads(out, 1), 1)[:, None].to(x.dtype)
+    return row_parallel(out, params["wo"]), cache_k, cache_v

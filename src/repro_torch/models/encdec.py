@@ -22,9 +22,11 @@ import numpy as np
 import torch
 
 from . import attention as attn
-from .layers import P, mlp_apply, mlp_specs, rms_norm, stack_specs
-from .transformer import (_embed_inputs, _layers, _positions, _run_layer, _unembed,
-                          kv_repeat_for, nll, torch_dtype)
+from .layers import (P, merge_heads, mlp_apply, mlp_specs, norm_in, row_parallel, stack_specs,
+                     unflatten)
+from ..sharding.partitioning import sharded_zeros
+from .transformer import (_cache_head_axis, _embed_inputs, _layers, _positions, _run_layer,
+                          _unembed, _use, kv_repeat_for, nll, torch_dtype)
 
 __all__ = [
     "encdec_specs",
@@ -91,22 +93,23 @@ def encode(cfg, params, frames):
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     for blk in _layers(params["enc_blocks"]):
-        h = rms_norm(x, blk["ln1"])
+        blk = _use(blk)
+        h = norm_in(x, blk["ln1"])
         q, k, v = attn._project_qkv(cfg, blk["attn"], h, positions)
         o = attn.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + o @ blk["attn"]["wo"].to(cdt)
-        h = rms_norm(x, blk["ln2"])
+        o = merge_heads(o, 2)
+        x = x + row_parallel(o, blk["attn"]["wo"])
+        h = norm_in(x, blk["ln2"])
         x = x + mlp_apply(blk["mlp"], h, "gelu")
-    return rms_norm(x, params["enc_ln"])
+    return norm_in(x, params["enc_ln"])
 
 
 def _cross_attend(cfg, cp, x, enc_k, enc_v):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    q = unflatten(x @ cp["wq"].to(x.dtype), -1, (h, hd))
     o = attn.flash_attention(q, enc_k, enc_v, causal=False, chunk=cfg.attn_chunk)
-    return o.reshape(b, s, h * hd) @ cp["wo"].to(x.dtype)
+    return row_parallel(merge_heads(o, 2), cp["wo"])
 
 
 def _cross_kv(cfg, cp, enc_out):
@@ -114,7 +117,7 @@ def _cross_kv(cfg, cp, enc_out):
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     k = enc_out @ cp["wk"].to(enc_out.dtype)
     v = enc_out @ cp["wv"].to(enc_out.dtype)
-    return k.reshape(b, t, kv, hd), v.reshape(b, t, kv, hd)
+    return unflatten(k, -1, (kv, hd)), unflatten(v, -1, (kv, hd))
 
 
 def decode_stack_train(cfg, params, tokens, enc_out):
@@ -124,13 +127,13 @@ def decode_stack_train(cfg, params, tokens, enc_out):
     positions = _positions(b, s, x.device)
 
     def body(x, blk):
-        h = rms_norm(x, blk["ln1"])
+        h = norm_in(x, blk["ln1"])
         a, _ = attn.attention_train(cfg, blk["attn"], h, positions)
         x = x + a
-        h = rms_norm(x, blk["lnx"])
+        h = norm_in(x, blk["lnx"])
         enc_k, enc_v = _cross_kv(cfg, blk["cross"], enc_out)
         x = x + _cross_attend(cfg, blk["cross"], h, enc_k, enc_v)
-        h = rms_norm(x, blk["ln2"])
+        h = norm_in(x, blk["ln2"])
         return x + mlp_apply(blk["mlp"], h, "gelu")
 
     for blk in _layers(params["dec_blocks"]):
@@ -174,18 +177,21 @@ def encdec_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
     kvh = cfg.num_kv_heads * rep
     shape = (cfg.num_layers, b, max_len, kvh, cfg.head_dim)
     cross_shape = (cfg.num_layers, b, enc_out.shape[1], kvh, cfg.head_dim)
-    cache = {"self": {"k": torch.zeros(shape, dtype=torch.bfloat16, device=x.device),
-                      "v": torch.zeros(shape, dtype=torch.bfloat16, device=x.device)},
-             "cross": {"k": torch.empty(cross_shape, dtype=torch.bfloat16, device=x.device),
-                       "v": torch.empty(cross_shape, dtype=torch.bfloat16, device=x.device)}}
+    axes = ("layers", "batch", "seq_cache", _cache_head_axis(cfg, rep, tp_degree), None)
+    cross_axes = ("layers", "batch", None, axes[3], None)
+    cache = {"self": {"k": sharded_zeros(shape, torch.bfloat16, axes, x),
+                      "v": sharded_zeros(shape, torch.bfloat16, axes, x)},
+             "cross": {"k": sharded_zeros(cross_shape, torch.bfloat16, cross_axes, x),
+                       "v": sharded_zeros(cross_shape, torch.bfloat16, cross_axes, x)}}
     for i, blk in enumerate(_layers(params["dec_blocks"])):
-        h = rms_norm(x, blk["ln1"])
+        blk = _use(blk)
+        h = norm_in(x, blk["ln1"])
         a, (k, v) = attn.attention_train(cfg, blk["attn"], h, positions)
         x = x + a
-        h = rms_norm(x, blk["lnx"])
+        h = norm_in(x, blk["lnx"])
         ck, cv = _cross_kv(cfg, blk["cross"], enc_out)
         x = x + _cross_attend(cfg, blk["cross"], h, ck, cv)
-        h = rms_norm(x, blk["ln2"])
+        h = norm_in(x, blk["ln2"])
         x = x + mlp_apply(blk["mlp"], h, "gelu")
         if rep > 1:
             k, v, ck, cv = (torch.repeat_interleave(t, rep, dim=2) for t in (k, v, ck, cv))
@@ -209,15 +215,17 @@ def encdec_decode(cfg, params, batch, cache, tp_degree: int = 16):
             _layers(params["dec_blocks"]), torch.unbind(cache["self"]["k"], 0),
             torch.unbind(cache["self"]["v"], 0), torch.unbind(cache["cross"]["k"], 0),
             torch.unbind(cache["cross"]["v"], 0)):
-        h = rms_norm(x, blk["ln1"])
+        blk = _use(blk)
+        h = norm_in(x, blk["ln1"])
         a, _, _ = attn.attention_decode(cfg, blk["attn"], h, k_l, v_l, cache_len, rep)
         x = x + a
-        h = rms_norm(x, blk["lnx"])
+        h = norm_in(x, blk["lnx"])
         # cross attention against the fixed encoder KV (already repeated)
-        q = (h @ blk["cross"]["wq"].to(cdt)).reshape(b, 1, h_heads, hd)
+        q = unflatten(h @ blk["cross"]["wq"].to(cdt), -1, (h_heads, hd))
         o = attn.flash_attention(q, ck.to(cdt), cv.to(cdt), causal=False,
-                                 chunk=cfg.attn_chunk).reshape(b, 1, h_heads * hd)
-        x = x + o @ blk["cross"]["wo"].to(cdt)
-        h = rms_norm(x, blk["ln2"])
+                                 chunk=cfg.attn_chunk)
+        o = merge_heads(o, 2)
+        x = x + row_parallel(o, blk["cross"]["wo"])
+        h = norm_in(x, blk["ln2"])
         x = x + mlp_apply(blk["mlp"], h, "gelu")
     return _unembed(cfg, params, x, cdt), cache

@@ -22,9 +22,10 @@ import torch
 
 from . import attention as attn
 from . import mamba2 as m2
-from .layers import P, mlp_apply, mlp_specs, rms_norm, stack_specs
-from .transformer import (_embed_inputs, _layers, _positions, _run_layer, _unembed,
-                          kv_repeat_for, nll, torch_dtype)
+from .layers import P, mlp_apply, mlp_specs, norm_in, stack_specs
+from ..sharding.partitioning import annotate, sharded_zeros
+from .transformer import (_cache_head_axis, _embed_inputs, _layers, _positions, _run_layer,
+                          _unembed, _use, kv_repeat_for, nll, torch_dtype)
 
 __all__ = [
     "hybrid_specs",
@@ -91,11 +92,11 @@ def _lora_attn(shared_attn, lora, dtype_of):
 def _shared_attn_train(cfg, shared, lora, x, positions):
     """Shared block with LoRA deltas folded into the projections (cast to the
     weight dtype)."""
-    h = rms_norm(x, shared["ln1"])
+    h = norm_in(x, shared["ln1"])
     ap = _lora_attn(shared["attn"], lora, lambda w: w.dtype)
     a, kv = attn.attention_train(cfg, ap, h, positions)
     x = x + a
-    h = rms_norm(x, shared["ln2"])
+    h = norm_in(x, shared["ln2"])
     x = x + mlp_apply(shared["mlp"], h, "swiglu")
     return x, kv
 
@@ -107,14 +108,17 @@ def hybrid_forward(cfg, params, batch):
     positions = _positions(b, s, x.device)
     groups, p, tail = _layout(cfg)
 
+    shared = _use(params["shared"])
+
     def mamba_body(x, blk):
+        x = annotate(x, "batch", "seq_act", None)
         return m2.mamba2_block(cfg, blk, x, m2.zero_state(cfg, b, x.device))[0]
 
     def group_body(x, inp):
         grp, lora = inp
         for blk in _layers(grp):
             x = _run_layer(cfg, mamba_body, x, blk)
-        return _shared_attn_train(cfg, params["shared"], lora, x, positions)[0]
+        return _shared_attn_train(cfg, shared, lora, x, positions)[0]
 
     for inp in zip(_layers(params["groups"]), _layers(params["lora"])):
         x = _run_layer(cfg, group_body, x, inp)
@@ -161,13 +165,16 @@ def hybrid_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
     groups, p, tail = _layout(cfg)
     rep = kv_repeat_for(cfg, tp_degree)
     shape = (groups, b, max_len, cfg.num_kv_heads * rep, cfg.head_dim)
-    kv = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=x.device),
-          "v": torch.zeros(shape, dtype=torch.bfloat16, device=x.device)}
+    axes = ("layers", "batch", "seq_cache", _cache_head_axis(cfg, rep, tp_degree), None)
+    kv = {"k": sharded_zeros(shape, torch.bfloat16, axes, x),
+          "v": sharded_zeros(shape, torch.bfloat16, axes, x)}
+    shared = _use(params["shared"])
 
     def mamba_run(x, blocks):
         states = []
         for blk in _layers(blocks):
-            x, st = m2.mamba2_block(cfg, blk, x, m2.zero_state(cfg, b, x.device))
+            x = annotate(x, "batch", "seq_act", None)
+            x, st = m2.mamba2_block(cfg, _use(blk), x, m2.zero_state(cfg, b, x.device))
             states.append(st)
         return x, _stack_states(states)
 
@@ -175,7 +182,7 @@ def hybrid_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
     for g, (grp, lora) in enumerate(zip(_layers(params["groups"]), _layers(params["lora"]))):
         x, states = mamba_run(x, grp)
         group_states.append(states)
-        x, (k, v) = _shared_attn_train(cfg, params["shared"], lora, x, positions)
+        x, (k, v) = _shared_attn_train(cfg, shared, _use(lora), x, positions)
         if rep > 1:
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
@@ -194,11 +201,11 @@ def hybrid_decode(cfg, params, batch, cache, tp_degree: int = 16):
     x = _embed_inputs(cfg, params, {"tokens": batch["tokens"]}, cdt)
     cache_len = int(batch["cache_len"])
     rep = kv_repeat_for(cfg, tp_degree)
-    shared = params["shared"]
+    shared = _use(params["shared"])
 
     def mamba_run(x, blocks, states):
         for blk, st in zip(_layers(blocks), _layers(states)):
-            x, new = m2.mamba2_decode_step(cfg, blk, x, st)
+            x, new = m2.mamba2_decode_step(cfg, _use(blk), x, st)
             for key, t in st.items():
                 t.copy_(new[key])
         return x
@@ -207,11 +214,11 @@ def hybrid_decode(cfg, params, batch, cache, tp_degree: int = 16):
             _layers(params["groups"]), _layers(params["lora"]), _layers(cache["mamba"]),
             torch.unbind(cache["kv"]["k"], 0), torch.unbind(cache["kv"]["v"], 0)):
         x = mamba_run(x, grp, mstates)
-        h = rms_norm(x, shared["ln1"])
-        ap = _lora_attn(shared["attn"], lora, lambda w: cdt)
+        h = norm_in(x, shared["ln1"])
+        ap = _lora_attn(shared["attn"], _use(lora), lambda w: cdt)
         a, _, _ = attn.attention_decode(cfg, ap, h, k_l, v_l, cache_len, rep)
         x = x + a
-        h = rms_norm(x, shared["ln2"])
+        h = norm_in(x, shared["ln2"])
         x = x + mlp_apply(shared["mlp"], h, "swiglu")
     if "tail" in params:
         x = mamba_run(x, params["tail"], cache["mamba_tail"])

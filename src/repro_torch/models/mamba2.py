@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import P, rms_norm
+from .layers import (P, cumsum, einsum, merge_heads, norm_in, pad_dim1, rms_norm, row_parallel,
+                     unflatten)
 
 __all__ = ["mamba2_block_specs", "mamba2_block", "mamba2_decode_step", "mamba2_state_specs"]
 
@@ -95,10 +96,7 @@ def _ssd_chunked(x, dt, a_log, b_in, c_in, state, chunk: int):
     nc = -(-s // chunk)
     pad = nc * chunk - s
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b_in = F.pad(b_in, (0, 0, 0, pad))
-        c_in = F.pad(c_in, (0, 0, 0, pad))
+        x, dt, b_in, c_in = (pad_dim1(a, pad) for a in (x, dt, b_in, c_in))
 
     a = -torch.exp(a_log.float())                                       # (H,) negative
     la = dt.float() * a[None, None, :]                                  # log decay (B,S,H)
@@ -110,20 +108,20 @@ def _ssd_chunked(x, dt, a_log, b_in, c_in, state, chunk: int):
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
         xk, dtk, lak, bk, ck = x[:, sl], dt[:, sl], la[:, sl], b_in[:, sl], c_in[:, sl]
-        lam = torch.cumsum(lak, dim=1)                                  # (B,C,H) inclusive
+        lam = cumsum(lak, dim=1)                                  # (B,C,H) inclusive
         lam_last = lam[:, -1]                                           # (B,H)
         # inter-chunk: y_t += exp(Λ_t) C_t · S_in
-        inter = torch.einsum("bch,bcn,bhpn->bchp", torch.exp(lam), ck, s_in)
+        inter = einsum("bch,bcn,bhpn->bchp", torch.exp(lam), ck, s_in)
         # intra-chunk: kernel L_{t,s} = exp(Λ_t − Λ_s) for s ≤ t
         diff = lam[:, :, None, :] - lam[:, None, :, :]                  # (B,C,C,H)
         kern = torch.exp(diff) * mask[None, :, :, None]
-        cb = torch.einsum("bcn,bsn->bcs", ck, bk)                       # (B,C,C)
+        cb = einsum("bcn,bsn->bcs", ck, bk)                       # (B,C,C)
         w_s = dtk[:, :, :, None] * xk                                   # Δt·x (B,C,H,P)
-        intra = torch.einsum("bcsh,bshp->bchp", cb[..., None] * kern, w_s)
+        intra = einsum("bcsh,bshp->bchp", cb[..., None] * kern, w_s)
         ys.append(inter + intra)
         # state update: S_out = exp(Λ_last) S_in + Σ_s exp(Λ_last − Λ_s) w_s ⊗ B_s
         decay_out = torch.exp(lam_last[:, None, :] - lam)               # (B,C,H)
-        s_in = torch.exp(lam_last)[..., None, None] * s_in + torch.einsum(
+        s_in = torch.exp(lam_last)[..., None, None] * s_in + einsum(
             "bch,bchp,bcn->bhpn", decay_out, w_s, bk)
     y = torch.cat(ys, dim=1)[:, :s]
     return y, s_in
@@ -135,18 +133,18 @@ def mamba2_block(cfg, params, x, state, chunk=None):
     d_in, h, p, n = _dims(cfg)
     bsz, s, _ = x.shape
     res = x
-    xh = rms_norm(x, params["ln"])
+    xh = norm_in(x, params["ln"])
     proj = xh @ params["in_proj"].to(x.dtype)
     z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * n, h], dim=-1)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"], state["conv"])
     xs, b_in, c_in = torch.split(xbc, [d_in, n, n], dim=-1)
     dt = _softplus(dt_raw.float() + params["dt_bias"].float())
-    y, ssm_state = _ssd_chunked(xs.reshape(bsz, s, h, p), dt, params["a_log"], b_in, c_in,
-                                state["ssm"], chunk)
-    y = y + params["d_skip"].float()[None, None, :, None] * xs.reshape(bsz, s, h, p).float()
-    y = y.reshape(bsz, s, d_in).to(x.dtype)
+    xs = unflatten(xs, -1, (h, p))
+    y, ssm_state = _ssd_chunked(xs, dt, params["a_log"], b_in, c_in, state["ssm"], chunk)
+    y = y + params["d_skip"].float()[None, None, :, None] * xs.float()
+    y = merge_heads(y, 2).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["out_norm"])
-    out = y @ params["out_proj"].to(x.dtype)
+    out = row_parallel(y, params["out_proj"])
     return res + out, {"conv": conv_state.to(state["conv"].dtype), "ssm": ssm_state}
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import P
+from .layers import P, cumsum, einsum
 
 __all__ = ["moe_specs", "moe_apply", "route", "experts", "shared_expert"]
 
@@ -75,17 +75,17 @@ def route(cfg, params, x: torch.Tensor):
     # --- position-in-expert via k-major cumulative count --------------------
     onehot = F.one_hot(top_idx, e).float()                              # (G,T,K,E)
     flat = onehot.permute(0, 2, 1, 3).reshape(b, k * s, e)              # k-major (G,KT,E)
-    pos = torch.cumsum(flat, dim=1) - flat
+    pos = cumsum(flat, dim=1) - flat
     pos_scalar = torch.sum(pos * flat, dim=-1)                          # (G,KT)
     keep = (pos_scalar < c).float()
     slot_oh = (pos_scalar[..., None] == torch.arange(c, device=x.device)).float()
     # dispatch (G,KT,E,C), then fold the k slots back onto tokens
     dispatch_kt = flat[..., :, None] * slot_oh[..., None, :] * keep[..., None, None]
-    dispatch = dispatch_kt.reshape(b, k, s, e, c).sum(dim=1)            # (G,T,E,C)
+    dispatch = dispatch_kt.contiguous().reshape(b, k, s, e, c).sum(dim=1)   # (G,T,E,C)
 
     weights_kt = top_vals.permute(0, 2, 1).reshape(b, k * s)            # k-major weights
     combine_kt = dispatch_kt * weights_kt[..., None, None]
-    combine = combine_kt.reshape(b, k, s, e, c).sum(dim=1)              # (G,T,E,C)
+    combine = combine_kt.contiguous().reshape(b, k, s, e, c).sum(dim=1)     # (G,T,E,C)
 
     # load-balancing auxiliary loss (Switch-style), over the assignments
     # before the capacity drop
@@ -98,9 +98,9 @@ def route(cfg, params, x: torch.Tensor):
 def experts(params, expert_in: torch.Tensor) -> torch.Tensor:
     """The SwiGLU experts on their slots: (G, E, C, d) → (G, E, C, d)."""
     cd = expert_in.dtype
-    h = torch.einsum("gecd,edf->gecf", expert_in, params["wi"].to(cd))
-    g = torch.einsum("gecd,edf->gecf", expert_in, params["wg"].to(cd))
-    return torch.einsum("gecf,efd->gecd", F.silu(g) * h, params["wo"].to(cd))
+    h = einsum("gecd,edf->gecf", expert_in, params["wi"].to(cd))
+    g = einsum("gecd,edf->gecf", expert_in, params["wg"].to(cd))
+    return einsum("gecf,efd->gecd", F.silu(g) * h, params["wo"].to(cd))
 
 
 def shared_expert(sh, x: torch.Tensor) -> torch.Tensor:
@@ -112,8 +112,8 @@ def moe_apply(cfg, params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     """x: (B, S, d) → (out, aux_loss).  B is the group axis."""
     dispatch, combine, aux = route(cfg, params, x)
     cd = x.dtype
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(cd), x)      # (G,E,C,d)
-    out = torch.einsum("gtec,gecd->gtd", combine.to(cd), experts(params, expert_in))
+    expert_in = einsum("gtec,gtd->gecd", dispatch.to(cd), x)      # (G,E,C,d)
+    out = einsum("gtec,gecd->gtd", combine.to(cd), experts(params, expert_in))
     if cfg.moe_shared_expert:
         out = out + shared_expert(params["shared"], x)
     return out, aux

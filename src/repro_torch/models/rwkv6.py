@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import P, rms_norm
+from .layers import P, cumsum, einsum, merge_heads, pad_dim1, rms_norm, unflatten
 
 __all__ = ["rwkv6_block_specs", "rwkv6_block", "rwkv6_decode_step", "rwkv6_state_specs"]
 
@@ -101,8 +101,8 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     n = -(-s // chunk)
     pad = n * chunk - s
     if pad:
-        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
-        logw = F.pad(logw, (0, 0, 0, 0, 0, pad))                        # pad decay 0 → w=1
+        r, k, v = (pad_dim1(a, pad) for a in (r, k, v))
+        logw = pad_dim1(logw, pad)                                        # pad decay 0 → w=1
     idx = torch.arange(chunk, device=r.device)
     mask = (idx[:, None] > idx[None, :]).float()
     u = u[None, None].float()
@@ -110,7 +110,7 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     outs = []
     for i in range(n):
         rc, kc, vc, lw = (a[:, i * chunk:(i + 1) * chunk].float() for a in (r, k, v, logw))
-        lam_incl = torch.cumsum(lw, dim=1)                               # (B,C,H,D)
+        lam_incl = cumsum(lw, dim=1)                               # (B,C,H,D)
         lam_excl = lam_incl - lw
         lam_last = lam_incl[:, -1:]                                      # (B,1,H,D)
 
@@ -118,14 +118,14 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
         k_in = kc * torch.exp(-lam_incl)
         k_out = kc * torch.exp(lam_last - lam_incl)
 
-        inter = torch.einsum("bchd,bhde->bche", q_d, s_in)
-        scores = torch.einsum("bchd,bshd->bhcs", q_d, k_in)
+        inter = einsum("bchd,bhde->bche", q_d, s_in)
+        scores = einsum("bchd,bshd->bhcs", q_d, k_in)
         scores = scores * mask
-        intra = torch.einsum("bhcs,bshe->bche", scores, vc)
+        intra = einsum("bhcs,bshe->bche", scores, vc)
         # the bonus sums r·u·k over d and scales v by it
         bonus = torch.sum(rc * u * kc, dim=-1, keepdim=True) * vc
         outs.append(inter + intra + bonus)
-        s_in = torch.exp(lam_last[:, 0])[..., None] * s_in + torch.einsum(
+        s_in = torch.exp(lam_last[:, 0])[..., None] * s_in + einsum(
             "bshd,bshe->bhde", k_out, vc)
     out = torch.cat(outs, dim=1)[:, :s]
     return out, s_in
@@ -138,14 +138,14 @@ def rwkv6_time_mix(cfg, tp, x, shift_prev, state, chunk):
     xs, last = _shift(x, shift_prev)
     mu = tp["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i][None, None, :] for i in range(5))
-    r = (xr @ tp["wr"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (xk @ tp["wk"].to(x.dtype)).reshape(b, s, h, hd)
-    v = (xv @ tp["wv"].to(x.dtype)).reshape(b, s, h, hd)
+    r = unflatten(xr @ tp["wr"].to(x.dtype), -1, (h, hd))
+    k = unflatten(xk @ tp["wk"].to(x.dtype), -1, (h, hd))
+    v = unflatten(xv @ tp["wv"].to(x.dtype), -1, (h, hd))
     g = F.silu(xg @ tp["wg"].to(x.dtype))
-    logw = _decay(tp, xw).reshape(b, s, h, hd)
+    logw = unflatten(_decay(tp, xw), -1, (h, hd))
     u = tp["u"].float().reshape(h, hd)
     out, state = _wkv_chunked(r, k, v, logw, u, state, chunk)
-    out = rms_norm(out.reshape(b, s, d).to(x.dtype), tp["head_ln"])
+    out = rms_norm(merge_heads(out, 2).to(x.dtype), tp["head_ln"])
     out = out * g
     return out @ tp["wo"].to(x.dtype), last, state
 
@@ -189,19 +189,19 @@ def rwkv6_decode_step(cfg, params, x, state):
     prev = state["shift"].to(x.dtype)
     mu = tp["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (h1 + (prev - h1) * mu[i][None, :] for i in range(5))
-    r = (xr @ tp["wr"].to(x.dtype)).reshape(b, h, hd).float()
-    k = (xk @ tp["wk"].to(x.dtype)).reshape(b, h, hd).float()
-    v = (xv @ tp["wv"].to(x.dtype)).reshape(b, h, hd).float()
+    r = unflatten(xr @ tp["wr"].to(x.dtype), -1, (h, hd)).float()
+    k = unflatten(xk @ tp["wk"].to(x.dtype), -1, (h, hd)).float()
+    v = unflatten(xv @ tp["wv"].to(x.dtype), -1, (h, hd)).float()
     g = F.silu(xg @ tp["wg"].to(x.dtype))
     lora = torch.tanh(xw @ tp["wa"].to(x.dtype)) @ tp["wb"].to(x.dtype)
     logw = -torch.exp(tp["w0"].float() + lora.float())
-    w = torch.exp(logw).reshape(b, h, hd)
+    w = unflatten(torch.exp(logw), -1, (h, hd))
     u = tp["u"].float().reshape(h, hd)
     s_prev = state["wkv"]
     kv = k[..., :, None] * v[..., None, :]                               # (B,H,D,D)
-    o = torch.einsum("bhd,bhde->bhe", r, s_prev + u[None, :, :, None] * kv)
+    o = einsum("bhd,bhde->bhe", r, s_prev + u[None, :, :, None] * kv)
     s_new = w[..., None] * s_prev + kv
-    o = rms_norm(o.reshape(b, 1, d).to(x.dtype), tp["head_ln"]) * g[:, None, :]
+    o = rms_norm(merge_heads(o, 1)[:, None].to(x.dtype), tp["head_ln"]) * g[:, None, :]
     x = x + o @ tp["wo"].to(x.dtype)
 
     h2 = rms_norm(x, params["ln2"])[:, 0]

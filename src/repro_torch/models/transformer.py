@@ -11,7 +11,17 @@ the outputs of the non-batched matmuls, the reference's
 ``dots_with_no_batch_dims_saveable``.
 
 A MoE layer's load-balancing loss is summed over the layers and enters
-``lm_loss`` as ``+ 0.01·aux``.  An RWKV6 forward or prefill starts every
+``lm_loss`` as ``+ 0.01·aux``.
+
+On DTensors (the 2-D layout, :mod:`repro_torch.sharding`) the same code runs
+global-view under the sharded steps' ``implicit_replication()``: the tensors
+made inside the model (positions, masks, zero states, ``aux``) join the
+program replicated.  Sites with a rule of their own: the embedding lookup
+(:func:`_lookup`), the vocab-parallel loss (:func:`nll`), the products and
+scans of ``layers`` (``dot_f32``, ``einsum``, ``cumsum``, ``unflatten``,
+``merge_heads``, ``pad_dim1``); the prefill caches are allocated shard by
+shard (``sharded_zeros``).  On plain
+tensors nothing of this runs, and the numbers are those of one device.  An RWKV6 forward or prefill starts every
 layer from a zero state; decode carries the per-layer states in the cache
 and updates them in place, as it writes the KV cache.
 """
@@ -26,10 +36,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..sharding.partitioning import (annotate, gather_for_use, is_dtensor, replicated,
+                                     sharded_zeros)
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv6 as rwkv
-from .layers import P, dot_f32, flatten_with_paths, mlp_apply, mlp_specs, rms_norm, stack_specs
+from .layers import (P, dot_f32, flatten_with_paths, mlp_apply, mlp_specs, norm_in, stack_specs,
+                     tree_map)
 
 __all__ = [
     "decoder_specs",
@@ -91,11 +104,22 @@ def decoder_specs(cfg) -> dict:
     return specs
 
 
+def _lookup(tokens, table):
+    """``F.embedding``.  On a DTensor table the table is gathered whole at
+    its use (its FSDP and vocabulary shards) and each rank looks up its
+    own ids: DTensor's vocab-parallel lookup leaves a masked partial whose
+    one mask buffer a second use overwrites, and whose gradient some
+    torch releases cannot reduce."""
+    if not is_dtensor(table):
+        return F.embedding(tokens, table)
+    return F.embedding(tokens, replicated(table))
+
+
 def _embed_inputs(cfg, params, batch, compute_dtype):
-    x = F.embedding(batch["tokens"], params["embed"]).to(compute_dtype)
+    x = _lookup(batch["tokens"], params["embed"]).to(compute_dtype)
     if cfg.frontend == "patch_embed" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(compute_dtype)
-        ve = ve @ params["patch_proj"].to(compute_dtype)
+        ve = ve @ gather_for_use(params["patch_proj"]).to(compute_dtype)
         x = torch.cat([ve, x], dim=1)
     return x
 
@@ -116,6 +140,16 @@ def _layers(tree) -> list[dict]:
     return out
 
 
+def _use(tree):
+    """A layer's weights as they are used: on DTensors each leaf's FSDP
+    shards gathered (``gather_for_use``), which :func:`_run_layer` does
+    inside the checkpointed layer, so that remat gathers again in the
+    backward instead of keeping every layer's gathered weights; a tree of
+    plain tensors as it is."""
+    first = next((leaf for _, leaf in flatten_with_paths(tree)), None)
+    return tree_map(gather_for_use, tree) if is_dtensor(first) else tree
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
@@ -128,12 +162,23 @@ def _ffn(cfg, blk, h):
 
 
 def _dense_block(cfg, blk, x, positions):
-    h = rms_norm(x, blk["ln1"])
+    x = annotate(x, "batch", "seq_act", None)
+    h = norm_in(x, blk["ln1"])
     a, _ = attn.attention_train(cfg, blk["attn"], h, positions)
     x = x + a
-    h = rms_norm(x, blk["ln2"])
+    x = annotate(x, "batch", "seq_act", None)
+    h = norm_in(x, blk["ln2"])
     m, aux = _ffn(cfg, blk, h)
-    return x + m, aux
+    return x + _to_residual(m), aux
+
+
+def _to_residual(y):
+    """A feed-forward sublayer's output placed as the residual stream is
+    (``seq_act``) before it is added: ``layers.row_parallel``'s placement,
+    for MoE's output, which does not come from it (left to the add, a
+    sequence-sharded gradient would reach the experts' backward).  A
+    no-op off DTensor and where the output is placed already."""
+    return annotate(y, "batch", "seq_act", None)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -147,18 +192,24 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _run_layer(cfg, fn, x, blk):
     """One layer, under ``cfg.remat``'s activation checkpointing when the
-    graph is being recorded."""
+    graph is being recorded; its weights gathered for use (:func:`_use`)."""
+    def body(x, blk):
+        return fn(x, _use(blk))
+
     if not (cfg.remat and torch.is_grad_enabled()):
-        return fn(x, blk)
+        return body(x, blk)
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(fn, x, blk, use_reentrant=False, **kw)
+    return checkpoint(body, x, blk, use_reentrant=False, **kw)
 
 
 def _unembed(cfg, params, x, cdt):
-    x = rms_norm(x, params["final_ln"])
-    logits = dot_f32(x, params["unembed"].to(cdt))
+    x = norm_in(x, params["final_ln"])
+    logits = dot_f32(x, gather_for_use(params["unembed"]).to(cdt))
+    # vocab-parallel logits (DTensor may leave the product Partial over
+    # 'model'): the layout the loss and the served logits are read in
+    logits = annotate(logits, "batch", "seq_act", "vocab")
     mask = vocab_mask(cfg, x.device)
     if mask is not None:
         logits = logits + mask
@@ -189,9 +240,78 @@ def decoder_forward(cfg, params, batch):
 
 def nll(logits, labels):
     """Mean next-token negative log-likelihood of float32 logits."""
+    if is_dtensor(logits) and _vocab_sharded(logits):
+        return _nll_vocab_parallel(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     true = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - true)
+    return replicated(torch.mean(lse - true))
+
+
+def _vocab_sharded(logits) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return any(isinstance(p, Shard) and p.dim == logits.dim() - 1 and logits.device_mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _nll_vocab_parallel(logits, labels):
+    """``nll`` of vocab-sharded DTensor logits (with the vocabulary whole
+    on every rank, a (1, 1) mesh, ``nll``'s own ops run, so the numbers
+    are one device's), Megatron's vocab-parallel
+    cross entropy in global view: the max and the sum of exponentials
+    reduce over the vocabulary shards, and the true logit is picked shard
+    by shard (:func:`_pick_vocab_parallel`), so the logits are never
+    all-gathered.  Each partial result is reduced explicitly
+    (:func:`_reduce_partial`) before a nonlinear op reads it: left to the
+    reduction DTensor makes inside ``log``, torch 2.11 (the card's
+    release) gave a wrong gradient (a few percent at random weights,
+    1e7 in norm after one AdamW step) with a right loss.  The loss is
+    replicated."""
+    m = _reduce_partial(logits.detach().amax(dim=-1, keepdim=True))
+    lse = torch.log(_reduce_partial(torch.exp(logits - m).sum(dim=-1))) + m[..., 0]
+    true = _reduce_partial(_pick_vocab_parallel(logits, labels))
+    return replicated(torch.mean(lse - true))
+
+
+def _reduce_partial(t):
+    """A DTensor's ``Partial`` placements reduced (to ``Replicate``), its
+    shards kept, by a ``redistribute`` that autograd records; anything
+    else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return t if want == tuple(t.placements) else t.redistribute(t.device_mesh, want)
+
+
+def _pick_vocab_parallel(logits, labels):
+    """``logits[..., labels]`` of vocab-sharded DTensor logits, each rank on
+    its own shards: it gathers the labels that fall in its slice of the
+    vocabulary and gives 0 for the others, and the sum over the vocabulary
+    shards (a ``Partial``) is the pick — no (batch, seq, vocab) one-hot.
+    The labels are placed as the logits' other dims are (a local slice)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    vocab = [isinstance(p, Shard) and p.dim == vdim for p in logits.placements]
+    rest = tuple(Replicate() if v else p for v, p in zip(vocab, logits.placements))
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    labels = labels.redistribute(mesh, rest)
+    local = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, logits.placements)
+    n = local.shape[-1]
+    idx = labels.to_local().long() - offset[vdim]
+    inside = (idx >= 0) & (idx < n)
+    picked = torch.gather(local, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    shape = tuple(logits.shape[:-1])
+    return DTensor.from_local(picked, mesh, tuple(Partial() if v else p for v, p in
+                                                  zip(vocab, logits.placements)),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def lm_loss(cfg, params, batch):
@@ -201,7 +321,7 @@ def lm_loss(cfg, params, batch):
         logits = logits[:, batch["vision_embeds"].shape[1]:]
     loss = nll(logits, batch["labels"])
     if cfg.num_experts:
-        loss = loss + 0.01 * aux
+        loss = replicated(loss + 0.01 * aux)
     return loss
 
 
@@ -219,6 +339,11 @@ def kv_repeat_for(cfg, tp_degree: int = 16) -> int:
     while rep > 1 and (h % (kvh * rep) or tp_degree % (kvh * rep)):
         rep -= 1
     return max(rep, 1)
+
+
+def _cache_head_axis(cfg, rep: int, tp_degree: int):
+    """The logical axis of a KV cache's head dim (``init_kv_cache_specs``'s rule)."""
+    return "kv_cache" if (cfg.num_kv_heads * rep) % tp_degree == 0 else None
 
 
 def decoder_cache_specs(cfg, batch: int, max_len: int, tp_degree: int = 16):
@@ -240,24 +365,29 @@ def decoder_prefill(cfg, params, batch, max_len: int, tp_degree: int = 16):
     if cfg.family == "ssm":
         states = []
         for blk in _layers(params["blocks"]):
-            x, st = rwkv.rwkv6_block(cfg, blk, x, rwkv.zero_state(cfg, b, cdt, x.device))
+            x, st = rwkv.rwkv6_block(cfg, _use(blk), x, rwkv.zero_state(cfg, b, cdt, x.device))
             states.append(st)
         cache = {key: torch.stack([st[key] for st in states]) for key in states[0]}
         return _unembed(cfg, params, x[:, -1:], cdt), cache
     positions = _positions(b, s, x.device)
     rep = kv_repeat_for(cfg, tp_degree)
     shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads * rep, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=x.device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=x.device)}
+    axes = ("layers", "batch", "seq_cache", _cache_head_axis(cfg, rep, tp_degree), None)
+    cache = {"k": sharded_zeros(shape, torch.bfloat16, axes, x),
+             "v": sharded_zeros(shape, torch.bfloat16, axes, x)}
     for i, blk in enumerate(_layers(params["blocks"])):
-        h = rms_norm(x, blk["ln1"])
+        blk = _use(blk)
+        x = annotate(x, "batch", "seq_act", None)
+        h = norm_in(x, blk["ln1"])
         a, (k, v) = attn.attention_train(cfg, blk["attn"], h, positions)
         x = x + a
-        h = rms_norm(x, blk["ln2"])
-        x = x + _ffn(cfg, blk, h)[0]
+        h = norm_in(x, blk["ln2"])
+        x = x + _to_residual(_ffn(cfg, blk, h)[0])
         if rep > 1:
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
+        k = annotate(k, "batch", "seq_cache", axes[3], None)
+        v = annotate(v, "batch", "seq_cache", axes[3], None)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     return _unembed(cfg, params, x[:, -1:], cdt), cache
@@ -267,10 +397,10 @@ def decoder_decode(cfg, params, batch, cache, tp_degree: int = 16):
     """One decode step: batch = {tokens (B, 1), cache_len (a host int)} →
     (logits (B, 1, V) float32, cache), the cache updated in place."""
     cdt = torch_dtype(cfg.compute_dtype)
-    x = F.embedding(batch["tokens"], params["embed"]).to(cdt)
+    x = _lookup(batch["tokens"], params["embed"]).to(cdt)
     if cfg.family == "ssm":
         for blk, st in zip(_layers(params["blocks"]), _layers(cache)):
-            x, new = rwkv.rwkv6_decode_step(cfg, blk, x, st)
+            x, new = rwkv.rwkv6_decode_step(cfg, _use(blk), x, st)
             for key, t in st.items():
                 t.copy_(new[key])
         return _unembed(cfg, params, x, cdt), cache
@@ -278,9 +408,10 @@ def decoder_decode(cfg, params, batch, cache, tp_degree: int = 16):
     rep = kv_repeat_for(cfg, tp_degree)
     for blk, k_l, v_l in zip(_layers(params["blocks"]), torch.unbind(cache["k"], 0),
                              torch.unbind(cache["v"], 0)):
-        h = rms_norm(x, blk["ln1"])
+        blk = _use(blk)
+        h = norm_in(x, blk["ln1"])
         a, _, _ = attn.attention_decode(cfg, blk["attn"], h, k_l, v_l, cache_len, rep)
         x = x + a
-        h = rms_norm(x, blk["ln2"])
-        x = x + _ffn(cfg, blk, h)[0]
+        h = norm_in(x, blk["ln2"])
+        x = x + _to_residual(_ffn(cfg, blk, h)[0])
     return _unembed(cfg, params, x, cdt), cache

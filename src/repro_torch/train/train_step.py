@@ -11,8 +11,11 @@ torch port of ``repro.train.train_step``, on one device).
 
 The state is ``{"params", "opt", "step"}``; ``step`` is a 0-d int32 tensor
 on the host, so the step and learning-rate arithmetic never read the
-device.  The sharded, jitted step of the reference (``jit_train_step``)
-comes with the 2-D layout (ROADMAP A17c).
+device.
+
+:func:`jit_train_step` is the sharded step on a ``DeviceMesh`` (the 2-D
+layout of :mod:`repro_torch.sharding`): the same step on DTensor state, run
+eagerly — the name is the reference's, which jits it.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from ..models.layers import P, tree_leaves
 from ..models.model_zoo import build_model
 from ..models.transformer import torch_dtype
 from ..optim import cosine_schedule, make_optimizer
+from ..sharding.partitioning import (ShardingRules, is_dtensor, make_shardings, placed_like,
+                                     replicated, use_rules)
 
-__all__ = ["TrainState", "make_train_state_specs", "make_train_step"]
+__all__ = ["TrainState", "make_train_state_specs", "make_train_step", "jit_train_step"]
 
 TrainState = dict  # {"params": tree, "opt": tree, "step": 0-d int32 tensor}
 
@@ -42,13 +47,38 @@ def make_train_state_specs(cfg: ArchConfig):
 
 
 def _split_microbatches(batch: dict, n: int) -> dict:
+    """Each input as ``n`` microbatches along a new leading axis.  A DTensor
+    input splits each rank's own rows (microbatch i holds the i-th n-th of
+    every rank's rows), so the split moves no data between ranks; the sum
+    over the microbatches is the same, the grouping of rows differs from
+    the global reshape."""
     def split(x):
+        if is_dtensor(x):
+            return _split_local(x, n)
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by {n} microbatches")
         return x.reshape((n, b // n) + tuple(x.shape[1:]))
 
     return {k: split(v) if getattr(v, "ndim", 0) > 0 else v for k, v in batch.items()}
+
+
+def _split_local(x, n: int) -> list:
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = x.to_local()
+    b = local.shape[0]
+    if b % n:
+        raise ValueError(f"a rank's {b} batch rows are not divisible by {n} microbatches")
+    parts = local.reshape((n, b // n) + tuple(local.shape[1:]))
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} not divisible by {n} microbatches")
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    if any(isinstance(p, Shard) and p.dim != 0 for p in x.placements):
+        raise ValueError(f"microbatches split the batch dim; the input is placed {x.placements}")
+    return [DTensor.from_local(parts[i], x.device_mesh, x.placements, run_check=False,
+                               shape=torch.Size(shape), stride=parts[i].stride())
+            for i in range(n)]
 
 
 def make_train_step(cfg: ArchConfig, shape: ShapeSpec, *, lr: float = 3e-4,
@@ -66,7 +96,9 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, *, lr: float = 3e-4,
 
     def value_and_grad(leaves, params, mb):
         loss = model.loss(params, mb)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        # a DTensor gradient to its parameter's placements (FSDP: Partial → Shard)
+        return loss.detach(), [placed_like(g, p) for g, p in zip(grads, leaves)]
 
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
@@ -78,7 +110,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, *, lr: float = 3e-4,
             loss, grads = value_and_grad(leaves, params, batch)
         else:
             mbs = _split_microbatches(batch, n_micro)
-            acc = [torch.zeros(p.shape, dtype=gdt, device=p.device) for p in leaves]
+            acc = [torch.zeros_like(p, dtype=gdt) for p in leaves]
             loss = 0.0
             for i in range(n_micro):
                 li, g = value_and_grad(leaves, params, {k: v[i] for k, v in mbs.items()})
@@ -92,10 +124,40 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, *, lr: float = 3e-4,
 
         step = int(state["step"]) + 1
         cur_lr = schedule(step)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        gnorm = replicated(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
         opt.update(params, grads, state["opt"], cur_lr, float(step), wd=weight_decay)
         state["step"] = torch.tensor(step, dtype=torch.int32)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": cur_lr}
 
     return train_step
 
+
+
+def jit_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules, **kw):
+    """The sharded train step on ``mesh`` and everything the launcher needs:
+    ``(step, state_specs, state_sh, batch_sh)``, as the reference returns
+    them.  The step is eager (the name is the reference's, whose step is
+    jitted): ``step(state, batch)`` runs :func:`make_train_step`'s step on
+    DTensor state placed by ``state_sh`` and a batch placed by
+    ``batch_sh`` (``repro_torch.sharding.distribute_tree``), under
+    ``use_rules(rules)`` and ``implicit_replication()`` — the tensors the
+    model makes inside join the program replicated — with the model built
+    for the mesh's 'model' degree.  The step issues no collective of its
+    own: DTensor issues them (FSDP gathers at use, TP reductions, each
+    gradient reduce-scattered to its parameter's placements).  The metrics
+    come back as plain tensors, the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    tp = mesh["model"].size() if "model" in (mesh.mesh_dim_names or ()) else 1
+    state_specs = make_train_state_specs(cfg)
+    model = build_model(cfg, tp_degree=tp)
+    step_fn = make_train_step(cfg, shape, **kw)
+    state_sh = make_shardings(state_specs, mesh, rules)
+    batch_sh = make_shardings(model.batch_axes(shape), mesh, rules)
+
+    def step(state, batch):
+        with use_rules(rules), implicit_replication():
+            state, metrics = step_fn(state, batch)
+        return state, {k: (v.full_tensor() if is_dtensor(v) else v) for k, v in metrics.items()}
+
+    return step, state_specs, state_sh, batch_sh

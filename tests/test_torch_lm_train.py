@@ -389,7 +389,9 @@ def test_train_resume_after_kill(tmp_path, capsys):
 
 
 def test_launcher_refuses_a_2d_layout_and_defaults_to_cuda():
-    with pytest.raises(NotImplementedError, match="A17c"):
+    """A 2-D layout needs data × model ranks: one process refuses it (the
+    sharded runs are in tests/test_torch_lm_layout.py)."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         train_main(["--smoke", "--device", "cpu", "--model-axis", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -454,8 +456,9 @@ def test_chip_smoke_lm_pins_match_jax(arch):
 
 def test_lm_modules_load_neither_jax_nor_repro():
     """The LM modules of the port (the MoE, RWKV6, Mamba2, hybrid and
-    encoder–decoder families among them), and a launcher run on the CPU,
-    load neither JAX nor the JAX package."""
+    encoder–decoder families, the 2-D layout and the dry-run tooling among
+    them), and a launcher run on the CPU, load neither JAX nor the JAX
+    package."""
     import subprocess
 
     code = (
@@ -464,6 +467,9 @@ def test_lm_modules_load_neither_jax_nor_repro():
         "import repro_torch.data, repro_torch.checkpoint, repro_torch.convert\n"
         "import repro_torch.models.moe, repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
         "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
+        "import repro_torch.analysis.op_cost, repro_torch.analysis.roofline\n"
+        "import repro_torch.analysis.report, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.perf, repro_torch.sharding\n"
         "from repro_torch.launch.train import main\n"
         "main(['--smoke', '--steps', '2', '--seq-len', '32', '--batch', '2', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
