@@ -452,7 +452,8 @@ def _volume_map(plan: AssemblyPlan, coords, volume, ctx: forms.FormContext | Non
     if rho_e is not None:
         return local_stiffness_p1(coords.contiguous(), rho_e)
     if ctx is None:
-        ctx = plan.context(coords)
+        with annotate("tg.map.context", profiler_only=True):
+            ctx = plan.context(coords)
     local_sum = None
     for kind, coeffs, scale in volume:
         local = weakform.KERNELS[kind].fn(ctx, plan.value_size, *coeffs) * scale
@@ -519,15 +520,16 @@ def _assemble_vals(plan: AssemblyPlan, form, arity: str, coords=None) -> torch.T
                                      [loc.dtype for loc in facet_sums.values()])
             out = torch.zeros(plan.nnz if is_mat else plan.num_dofs, dtype=dtype,
                               device=plan.device)
-    with annotate("tg.facet_inject"):
-        for domain, loc in facet_sums.items():
-            if is_mat:
-                # unique positions: index_add is a deterministic, differentiable add
-                fvals = seg_reduce(loc, domain.mat_reduce)
-                out = out.index_add(0, domain.injection_index(plan.mat_routing),
-                                    fvals.to(out.dtype))
-            else:
-                out = out + seg_reduce(loc, domain.vec_reduce).to(out.dtype)
+    if facet_sums:
+        with annotate("tg.facet_inject"):
+            for domain, loc in facet_sums.items():
+                if is_mat:
+                    # unique positions: index_add is a deterministic, differentiable add
+                    fvals = seg_reduce(loc, domain.mat_reduce)
+                    out = out.index_add(0, domain.injection_index(plan.mat_routing),
+                                        fvals.to(out.dtype))
+                else:
+                    out = out + seg_reduce(loc, domain.vec_reduce).to(out.dtype)
     if t0 is not None:
         _record("assemble", plan, spec, is_mat, int(c.shape[0]), t0)
     return out

@@ -28,6 +28,7 @@ from .mesh import FunctionSpace
 from .routing import build_matrix_routing, build_vector_routing
 from .sparse import CSR
 from ..kernels.seg_reduce import ReduceTable, seg_reduce
+from ..telemetry import annotate
 
 if TYPE_CHECKING:
     from .operator import LinearOperator
@@ -96,8 +97,10 @@ class DirichletCondenser:
         return f_lift.index_put((bc,), u_d[bc])
 
     def apply(self, k: CSR, f: torch.Tensor, values=0.0) -> tuple[CSR, torch.Tensor]:
-        """Return the condensed system (same sparsity pattern)."""
-        return self.apply_matrix_only(k), self.lift(k, f, values)
+        """Return the condensed system (same sparsity pattern); a
+        ``tg.condense`` range while a trace is taken."""
+        with annotate("tg.condense", profiler_only=True):
+            return self.apply_matrix_only(k), self.lift(k, f, values)
 
     def apply_matrix_only(self, k):
         """Mask constrained rows/columns, unit diagonal.  The masks

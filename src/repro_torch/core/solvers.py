@@ -5,7 +5,13 @@ The torch port of ``repro.core.solvers``:
 * :func:`cg`, :func:`bicgstab` — preconditioned Krylov solvers with the
   update order and stopping rule of the JAX package, as Python loops.  The
   stopping test reads the residual norm on the host, one synchronisation
-  per iteration.  Both return ``(x, SolveInfo)``.
+  per iteration.  Both return ``(x, SolveInfo)``.  While telemetry is on
+  and a profiler records, each operator application, preconditioner
+  application and host read is a named profiler range
+  (``tg.solve.matvec``, ``tg.solve.precond``, ``tg.sync``); that is
+  checked once a solve, so otherwise the loop calls the bare callables.
+* :func:`host_read` — a device scalar read on the host, the solve path's
+  synchronisation point: a ``tg.sync`` range while a trace is taken.
 * :class:`SolverSpec` — the solver knobs ``(method, tol, atol, maxiter,
   precond)`` as one frozen value; :func:`resolve_solver_spec` folds the
   legacy per-kwarg form into one (with a ``DeprecationWarning``).
@@ -35,6 +41,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..telemetry import annotate, events, span
+from ..telemetry.trace import recording
 from .sparse import CSR, BatchedCSR, cached_diagonal
 
 __all__ = [
@@ -50,6 +57,7 @@ __all__ = [
     "matfree_solve",
     "matfree_solve_batched",
     "SolveInfo",
+    "host_read",
 ]
 
 
@@ -192,21 +200,39 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x)
 
 
+def host_read(x: torch.Tensor) -> float:
+    """``float(x)`` of a device scalar: the host waits for the device here.
+    A ``tg.sync`` range while telemetry is on and a profiler records."""
+    with annotate("tg.sync", profiler_only=True):
+        return float(x)
+
+
+def _in_ranges(matvec, m):
+    """The solve's operator, preconditioner and host read: wrapped in their
+    ranges while telemetry is on and a profiler records, else the bare
+    callables (and ``float``), so that an iteration pays nothing for the
+    ranges while no trace is taken."""
+    if not recording():
+        return matvec, m, float
+    return (annotate("tg.solve.matvec", profiler_only=True)(matvec),
+            annotate("tg.solve.precond", profiler_only=True)(m), host_read)
+
+
 # ---------------------------------------------------------------------------
 # Conjugate gradients (SPD systems)
 # ---------------------------------------------------------------------------
 
 def cg(matvec, b, x0=None, *, tol=1e-10, atol=1e-10, maxiter=10000, m=_identity):
-    matvec = _as_matvec(matvec)
+    matvec, m, read = _in_ranges(_as_matvec(matvec), m)
     x = torch.zeros_like(b) if x0 is None else x0
-    target = max(tol * float(_norm(b)), atol)
+    target = max(tol * read(_norm(b)), atol)
     with annotate("tg.solve.cg"):
         r = b - matvec(x)
         z = m(r)
         p = z
         rz = torch.dot(r, z)
         it = 0
-        while float(_norm(r)) > target and it < maxiter:
+        while read(_norm(r)) > target and it < maxiter:
             ap = matvec(p)
             alpha = rz / torch.dot(p, ap)
             x = x + alpha * p
@@ -217,7 +243,7 @@ def cg(matvec, b, x0=None, *, tol=1e-10, atol=1e-10, maxiter=10000, m=_identity)
             p = z + beta * p
             rz = rz_new
             it += 1
-    rnorm = float(_norm(r))
+    rnorm = read(_norm(r))
     return x, SolveInfo(it, rnorm, rnorm <= target)
 
 
@@ -230,9 +256,9 @@ def _safe(d: torch.Tensor) -> torch.Tensor:
 
 
 def bicgstab(matvec, b, x0=None, *, tol=1e-10, atol=1e-10, maxiter=10000, m=_identity):
-    matvec = _as_matvec(matvec)
+    matvec, m, read = _in_ranges(_as_matvec(matvec), m)
     x = torch.zeros_like(b) if x0 is None else x0
-    target = max(tol * float(_norm(b)), atol)
+    target = max(tol * read(_norm(b)), atol)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     with annotate("tg.solve.bicgstab"):
         r = b - matvec(x)
@@ -241,7 +267,7 @@ def bicgstab(matvec, b, x0=None, *, tol=1e-10, atol=1e-10, maxiter=10000, m=_ide
         v = torch.zeros_like(b)
         p = torch.zeros_like(b)
         it = 0
-        while float(_norm(r)) > target and it < maxiter:
+        while read(_norm(r)) > target and it < maxiter:
             rho_new = torch.dot(rhat, r)
             beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
             p = r + beta * (p - omega * v)
@@ -256,7 +282,7 @@ def bicgstab(matvec, b, x0=None, *, tol=1e-10, atol=1e-10, maxiter=10000, m=_ide
             r = s_vec - omega * t
             rho = rho_new
             it += 1
-    rnorm = float(_norm(r))
+    rnorm = read(_norm(r))
     return x, SolveInfo(it, rnorm, rnorm <= target)
 
 

@@ -16,6 +16,8 @@ import weakref
 import numpy as np
 import torch
 
+from ..telemetry import annotate
+
 __all__ = ["BatchedCSR", "CSR", "CSRPattern", "ELL", "cached_diagonal",
            "clear_device_mirrors", "csr_to_ell", "ell_layout"]
 
@@ -289,11 +291,15 @@ def ell_layout(csr: CSR) -> tuple[np.ndarray, np.ndarray, int]:
 
 
 def csr_to_ell(csr: CSR) -> ELL:
-    cols, _, L = csr.pattern.ell_layout()
-    n = csr.shape[0]
-    vals = torch.zeros(n * L, dtype=csr.vals.dtype, device=csr.vals.device)
-    vals = vals.index_put((csr._dev("flat_pos"),), csr.vals)
-    return ELL(vals.reshape(n, L), cols, csr.shape, csr._dev("cols"), csr.pattern)
+    """The values of ``csr`` in the pattern's ELL layout (the layout is
+    built once a pattern, the values filled at each call); a
+    ``tg.ell.values`` range while a trace is taken."""
+    with annotate("tg.ell.values", profiler_only=True):
+        cols, _, L = csr.pattern.ell_layout()
+        n = csr.shape[0]
+        vals = torch.zeros(n * L, dtype=csr.vals.dtype, device=csr.vals.device)
+        vals = vals.index_put((csr._dev("flat_pos"),), csr.vals)
+        return ELL(vals.reshape(n, L), cols, csr.shape, csr._dev("cols"), csr.pattern)
 
 
 def cached_diagonal(op) -> torch.Tensor:

@@ -49,7 +49,7 @@ from ..core import (
     weakform as wf,
 )
 from ..core.mesh import Mesh, element_for_mesh
-from ..core.solvers import _method
+from ..core.solvers import _method, host_read
 from ..telemetry import events
 
 __all__ = [
@@ -109,7 +109,7 @@ class _ProblemBase:
         ``converged`` flag; the relative residual is computed with the
         backend's fused residual."""
         be = backend or self.backend
-        t0 = time.perf_counter()
+        t0 = time.perf_counter() if telemetry.is_enabled() else None
         if condensed:
             u, info = condense(k, vertex_split(self.space)).solve(f, spec)
         else:
@@ -118,12 +118,13 @@ class _ProblemBase:
                 tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter)
         where = f"{type(self).__name__}.solve"
         events.check_convergence(info, where=where)
-        if telemetry.is_enabled():
+        if t0 is not None:
             events.record_solve(where, info, method=spec.method, backend=be,
                                 precond="condensed" if condensed else spec.precond_name,
                                 wall_us=(time.perf_counter() - t0) * 1e6)
-        r = make_residual(k, be)(u, f)
-        rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(f))
+        with telemetry.annotate("tg.solve.residual", profiler_only=True):
+            r = make_residual(k, be)(u, f)
+            rel = host_read(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(f))
         res = _SolveResult(u, info.iters, rel, info.converged)
         return (res, info) if return_info else res
 

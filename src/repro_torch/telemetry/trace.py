@@ -1,10 +1,14 @@
 """Named-phase profiler tracing.
 
 :class:`annotate` names a phase (``tg.map``, ``tg.reduce``, ``tg.solve.cg``)
-on the host timeline of a ``torch.profiler`` trace through
-``torch.profiler.record_function``, and on CUDA also as an NVTX range.  It
-records only while telemetry is enabled: when off, entering it costs one
-boolean check.
+on the host timeline of a ``torch.profiler`` trace, as a
+``torch.profiler.record_function`` range does (through the binding
+underneath it, which skips the operator dispatch and costs about a third),
+and on CUDA also as an NVTX range.  It records only while telemetry is
+enabled: when off, entering it costs one boolean check.  A range opened
+with ``profiler_only=True`` records only while a profiler records too
+(:func:`recording`): the solve path's per-iteration and per-solve child
+ranges, which cost the loop nothing while no trace is taken.
 
 :func:`capture` records a ``torch.profiler`` trace of a block and writes it
 as Chrome/Perfetto JSON (the counterpart of the reference's
@@ -27,19 +31,44 @@ __all__ = ["annotate", "capture"]
 
 
 class annotate:
-    """Name a phase: context manager *and* decorator."""
+    """Name a phase: context manager *and* decorator.
 
-    def __init__(self, name: str):
+    The port's ranges, by layer (a child range opens inside its parent;
+    those marked † are ``profiler_only``):
+
+    * assembly — ``tg.map`` (its child ``tg.map.context``†: the element
+      context an einsum Map builds from the coordinates), ``tg.reduce``,
+      ``tg.facet_inject`` (facet terms only), ``tg.all_reduce`` (sharded);
+    * boundary and layout — ``tg.condense``† (Dirichlet condensation of a
+      matrix and its load), ``tg.ell.values``† (a CSR's values put into the
+      ELL layout);
+    * Krylov loop — ``tg.solve.cg`` / ``tg.solve.bicgstab`` (the loop),
+      ``tg.solve.matvec``† and ``tg.solve.precond``† (each application,
+      the initial residual's too), ``tg.sync``† (each device scalar read on
+      the host: the stopping target, every stopping test, the final
+      residual, a solve's relative residual), ``tg.solve.residual``† (a
+      problem solve's fused residual after its loop);
+    * matrix-free apply — ``tg.matfree.gather``, ``tg.matfree.action``,
+      ``tg.matfree.scatter``, ``tg.matfree.all_reduce``;
+    * preconditioners and condensed solves — ``tg.precond.ebe_apply``,
+      ``tg.precond.chebyshev_apply``, ``tg.elemalg.condense``,
+      ``tg.elemalg.schur_apply``;
+    * time stepping — ``tg.theta.step``† and its right-hand side
+      ``tg.theta.rhs``†.
+    """
+
+    def __init__(self, name: str, *, profiler_only: bool = False):
         self.name = name
-        self._rf = None
+        self.profiler_only = profiler_only
+        self._handle = None
         self._nvtx = False
 
     def __enter__(self):
-        if not metrics.is_enabled():
+        if not metrics.is_enabled() or (self.profiler_only
+                                        and not torch.autograd._profiler_enabled()):
             return self
-        self._rf = torch.profiler.record_function(self.name)
-        self._rf.__enter__()
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
+        self._handle = _range_enter(self.name)
+        if torch.cuda.is_initialized():
             torch.cuda.nvtx.range_push(self.name)
             self._nvtx = True
         return self
@@ -48,18 +77,33 @@ class annotate:
         if self._nvtx:
             torch.cuda.nvtx.range_pop()
             self._nvtx = False
-        if self._rf is not None:
-            rf, self._rf = self._rf, None
-            rf.__exit__(*exc)
+        if self._handle is not None:
+            handle, self._handle = self._handle, None
+            _range_exit(handle)
         return False
 
     def __call__(self, fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with annotate(self.name):
+            with annotate(self.name, profiler_only=self.profiler_only):
                 return fn(*args, **kwargs)
 
         return wrapped
+
+
+def _range_enter(name: str):
+    """Open a ``user_annotation`` range (the one ``record_function`` opens)."""
+    return torch._C._autograd._record_function_with_args_enter(name)
+
+
+def _range_exit(handle) -> None:
+    torch._C._autograd._record_function_with_args_exit(handle)
+
+
+def recording() -> bool:
+    """True while telemetry is on and a profiler records: when a
+    ``profiler_only`` range opens."""
+    return metrics.is_enabled() and torch.autograd._profiler_enabled()
 
 
 @contextlib.contextmanager

@@ -40,7 +40,7 @@ from ..core.solvers import (
     sparse_solve,
 )
 from ..core.sparse import CSR
-from ..telemetry import events
+from ..telemetry import annotate, events
 from .stepping import axpy_csr, segmented_rollout
 
 __all__ = ["ThetaIntegrator", "BACKWARD_EULER", "CRANK_NICOLSON"]
@@ -144,26 +144,34 @@ class ThetaIntegrator:
         """Advance uⁿ → uⁿ⁺¹.  ``load`` is the assembled Fⁿ⁺ᶿ; ``bc_values``
         the Dirichlet data at tⁿ⁺¹ (scalar, (n_bc,), or full field).
         ``return_info=True`` also returns the step's
-        :class:`~repro_torch.core.SolveInfo`."""
+        :class:`~repro_torch.core.SolveInfo`.  While a trace is taken the
+        step is a ``tg.theta.step`` range and its right-hand side a
+        ``tg.theta.rhs`` range inside it."""
+        with annotate("tg.theta.step", profiler_only=True):
+            with annotate("tg.theta.rhs", profiler_only=True):
+                b = self._rhs(u, load, bc_values)
+            if self.backend == "csr":
+                return sparse_solve(self.lhs, b, self.spec, return_info=return_info)
+            if self.backend in _MATFREE_BACKENDS:
+                return matfree_solve(self.lhs, b, self.spec, return_info=return_info)
+            u_new, info = _method(self.spec.method)(
+                self._lhs_mv, b, x0=u, tol=self.spec.tol, atol=self.spec.atol,
+                maxiter=self.spec.maxiter, m=self._precond)
+        return (u_new, info) if return_info else u_new
+
+    def _rhs(self, u, load, bc_values):
+        """(M − (1−θ)Δt K) uⁿ + Δt Fⁿ⁺ᶿ, condensed."""
         b = self.rhs_op.matvec(u) if self.backend in _SOLVE_BACKENDS else self._rhs_mv(u)
         if load is not None:
             b = b + self.dt * load
         if self.bc is None:
             if bc_values is not None:
                 raise ValueError("bc_values given but no DirichletCondenser (bc=)")
-        elif bc_values is None:
+            return b
+        if bc_values is None:
             # homogeneous Dirichlet: the lift reduces to masking
-            b = self.bc.project_residual(b)
-        else:
-            b = self.bc.lift(self.lhs_full, b, bc_values)
-        if self.backend == "csr":
-            return sparse_solve(self.lhs, b, self.spec, return_info=return_info)
-        if self.backend in _MATFREE_BACKENDS:
-            return matfree_solve(self.lhs, b, self.spec, return_info=return_info)
-        u_new, info = _method(self.spec.method)(
-            self._lhs_mv, b, x0=u, tol=self.spec.tol, atol=self.spec.atol,
-            maxiter=self.spec.maxiter, m=self._precond)
-        return (u_new, info) if return_info else u_new
+            return self.bc.project_residual(b)
+        return self.bc.lift(self.lhs_full, b, bc_values)
 
     # -- rollout ---------------------------------------------------------------
     def rollout(self, u0, n_steps: int, *, loads=None, bc_values=None,

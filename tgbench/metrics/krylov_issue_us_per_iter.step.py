@@ -1,0 +1,6 @@
+"""As ``krylov_issue_us_per_iter.solve``, for the rollout cells, whose time steps move
+``step_ms`` (each solve of the loop is a time step)."""
+
+from tgbench.readout import reader
+
+read = reader("metrics", "krylov_issue_us_per_iter.solve")
