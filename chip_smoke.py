@@ -81,7 +81,14 @@ Phases, one JSON line each:
    (one batched B1 and one batched B2 launch) and ``solve_batch`` over 8
    Gaussian right-hand sides, each instance against its single solve; the
    batched B1/B2 timed against their plain versions and 8 single launches;
-15. matfree — at n = 64 on the main path's plan: ``PoissonProblem.solve(
+15. matfree_kernel — the fused P1 diffusion action (``csrc/matfree_p1.cu``): its
+   ``ptxas -v`` line; the kernel against its plain twin at (k, d) = (4, 3) and
+   (3, 2), float64 and float32, ragged element counts, every coefficient
+   encoding and a rank's block; one apply at unit_cube_tet(16) launches it
+   and B2 once each and no cuBLAS kernel, and the matrix-free solve there
+   is within 1e-8 of ``ell``'s; at n = 96 its time against its bound and
+   the einsum action, a whole apply each way, and one matrix-free solve;
+16. matfree — at n = 64 on the main path's plan: ``PoissonProblem.solve(
    backend="matfree")`` for the stores ``context``, ``coords`` and
    ``local`` against the ``ell`` solve (u 1e-8, iterations ±1, B2 once per
    apply and B1 for ``local`` by the wrappers and a profiler trace of 30
@@ -97,14 +104,14 @@ Phases, one JSON line each:
    ±1 against ``csr``'s); Allen–Cahn with ``NewtonKrylovIntegrator`` on
    ``unit_square_tri(512)`` (‖G(u)‖ < 1e-8) and at n = 8 against the JAX
    package's numbers;
-16. opt — TensorOpt on the paper's 60×30 cantilever: compliance, CG
+17. opt — TensorOpt on the paper's 60×30 cantilever: compliance, CG
    iterations and ‖∂C/∂ρ‖ at ρ = 0.5 against pinned JAX numbers, the
    autograd sensitivity against Eq. B.28 (1e-5), 10 MMA iterations (the
    first 3 compliances pinned; C below 0.8 of its start) and 10 OC
    iterations (below 0.7, volume held), a multistart family of 8 (one
    batched B2 launch in ``compliance_batch``, each instance equal to its
    single call, 1e-10);
-17. pils — physics-informed learning: at unit_square_tri(16) the Galerkin
+18. pils — physics-informed learning: at unit_square_tri(16) the Galerkin
    residual loss on ``ell`` (one B4 launch per loss and gradient) against
    ``csr`` (1e-9; its gradient in u 1e-10) and ``matfree``, 10 Adam steps
    of the paper's SIREN on ``csr`` and ``ell`` against pinned JAX losses
@@ -112,7 +119,7 @@ Phases, one JSON line each:
    ``ell``, ``matfree`` and for PINN, ``fit_family`` over 8 fields (one
    batched B1 and B2 build), and 5 epochs of the wave AGN (finite, falling
    loss);
-18. elemalg — the element tensor algebra: ``PoissonProblem(
+19. elemalg — the element tensor algebra: ``PoissonProblem(
    unit_square_tri(256), degree=2).solve(backend="matfree",
    condensed=True)`` (263,169 DoFs, the 66,049 vertices the interface)
    against the uncondensed ``matfree`` and ``ell`` solves (fewer outer
@@ -127,7 +134,7 @@ Phases, one JSON line each:
    path (u within 1e-8 of Jacobi's, fewer iterations; B1–B4 counted by
    the wrappers and a profiler trace); times of ``factorize``,
    ``ElementFactors.solve``, an EbE, a Chebyshev and a Schur apply;
-19. serve — the solve service (``repro_torch.serve``) and its telemetry
+20. serve — the solve service (``repro_torch.serve``) and its telemetry
    on ``csr`` and then ``matfree``: ``poisson_requests(resolution=256)``
    (66,049 DoFs), ``warmup`` of the buckets 1-16, two open-loop waves of
    16 requests at 2,000 requests/s through the worker thread, telemetry
@@ -141,7 +148,7 @@ Phases, one JSON line each:
    summing to e2e, a ``telemetry.capture`` naming the kernels, the JAX
    package's numbers at resolution 6, and ``python -m
    repro_torch.launch.serve --smoke`` in a subprocess;
-20. sharded — element-parallel sharding over ``torch.distributed`` ranks
+21. sharded — element-parallel sharding over ``torch.distributed`` ranks
    spawned on the one card (``torch.multiprocessing``, start method
    ``spawn``; each rank builds its own n = 64 plan and reports through a
    queue): one rank on NCCL, where the sharded assembly and each store's
@@ -157,7 +164,7 @@ Phases, one JSON line each:
    one B2 and one all-reduce a rank (its gather, action, B2 and
    all-reduce timed, and each rank's device memory read); four ranks on
    gloo at unit_cube_tet(9), whose 4,374 elements split unevenly;
-21. lm — the LM harness's dense decoder family (A17a): the five ported
+22. lm — the LM harness's dense decoder family (A17a): the five ported
    architectures (qwen3-4b, qwen3-32b, deepseek-67b, nemotron-4-340b,
    internvl2-26b) at smoke width in float32 on numpy-drawn parameters
    against pinned JAX numbers (the loss, 3 optimizer steps, prefill and
@@ -172,7 +179,7 @@ Phases, one JSON line each:
    ``--smoke`` with checkpoints every 10 steps, relaunched from 20 to 35;
    and what float32 results of bfloat16 contractions cost.  The path
    launches none of B1-B6;
-22. lm_families — the LM harness's other five families (A17b): all ten
+23. lm_families — the LM harness's other five families (A17b): all ten
    architectures at smoke width against pinned JAX numbers; RWKV6 and
    Mamba2 chunked against stepwise decode, RWKV6's chunk-size invariance,
    its chunked WKV's overflow (ROADMAP C4) in the host's rows, MoE routing
@@ -187,7 +194,7 @@ Phases, one JSON line each:
    memory, profiled idle shares); one MoE layer of each at 128 experts
    timed by its router, dense dispatch and combine, and expert products.
    The path launches none of B1-B6;
-23. lm_layout — the LM's 2-D layout on DTensor and its dry-run tooling
+24. lm_layout — the LM's 2-D layout on DTensor and its dry-run tooling
    (A17c): qwen3-4b at its published widths and depth 8 on a (1, 1) mesh of
    one NCCL rank, ``jit_train_step`` against ``make_train_step`` from the
    same draw (bit-equal losses, or 1e-6), with the op counter's roofline;
@@ -201,9 +208,9 @@ Phases, one JSON line each:
    dry-run of qwen3-4b and the perf variants baseline, seqpar and dp_attn
    on the host (started before the first phase); the launcher under
    torchrun with resume; none of B1-B6;
-24. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
+25. quickstart — ``examples/quickstart_torch.py`` in a subprocess against
    the numbers of ``examples/quickstart.py``;
-25. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
+26. kernels_offsets64 — batched B1 and B2 once past 2^31 elements in all
    (float32, ~12 GB of device memory), last, so that its allocations do
    not sit before the earlier phases' first readings.
 
@@ -224,7 +231,8 @@ host time per call and the n = 64 CG loop's wall time per iteration),
 ``assembly_cost`` (the wall time of a warm n = 64 assembly) and
 ``cold_path`` (reference, main_path and transient in a fresh process: the
 first n = 64 assembly and solve, and the time per θ step); or to try
-``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree``,
+``kernels_small``, ``mixed_bc``, ``elasticity``, ``batched``, ``matfree_kernel``,
+``matfree``,
 ``opt``, ``pils``, ``elemalg``, ``serve``, ``sharded``, ``lm``, ``lm_families``,
 ``lm_layout``, ``quickstart`` and
 ``kernels_offsets64`` alone; ``trace_drops`` runs only
@@ -289,6 +297,8 @@ KERNELS = {
                         "src/repro_torch/kernels/csrc/spmv_ell_stream.cu"),
     "galerkin_residual_ell_stream": ("src/repro/kernels/spmv_ell.py:426",
                                      "src/repro_torch/kernels/csrc/spmv_ell_stream.cu"),
+    "matfree_p1_diffusion": ("none (the einsum action of src/repro/core/operator.py)",
+                             "src/repro_torch/kernels/csrc/matfree_p1.cu"),
 }
 MAIN_KERNELS = ("local_stiffness_p1", "seg_reduce", "spmv_ell", "galerkin_residual_ell")
 # (N, L, block_n) of the JAX package's streaming sweep (tests/test_kernels.py)
@@ -1816,7 +1826,8 @@ def _lost_records(prof) -> list:
 def _kernel_calls(prof) -> dict:
     """Device kernel launches of a torch.profiler trace by the name of each
     of this repository's kernels."""
-    names = {"p1_stiffness_kernel": "local_stiffness_p1", "seg_reduce_kernel": "seg_reduce",
+    names = {"p1_stiffness_kernel": "local_stiffness_p1",
+             "p1_diffusion_kernel": "matfree_p1_diffusion", "seg_reduce_kernel": "seg_reduce",
              "tile_kernel": "spmv_ell/residual (tiles)",
              "wide_tile_kernel": "spmv_ell/residual (wide tiles)",
              "wide_kernel": "spmv_ell/residual (warp per row)"}
@@ -2173,6 +2184,170 @@ def _matfree_window(plan, bc, load, store):
     return cg(op, load, m=jacobi_preconditioner(op), maxiter=PROFILED_ITERS)
 
 
+# bytes an element of the fused P1 diffusion action's work (tgbench's
+# action_work: the 4×3 gradients, the measure, ρ and x_e read, y_e written,
+# in float64) and what the kernel moves from memory besides (the Q = 4
+# measures and the int64 indices; x gathered from L2)
+MF_WORK_BYTES, MF_MOVED_BYTES = 176, 96 + 32 + 8 + 32 + 32
+MF_KERNEL_N = 96
+
+
+def _matfree_kernel_cases(worst) -> int:
+    """The fused kernel against its plain twin on ragged element counts,
+    float64 and float32, every coefficient encoding and layout it reads."""
+    from repro_torch import kernels
+    from repro_torch.core import FunctionSpace, build_plan, element_for_mesh
+    from repro_torch.core import unit_cube_tet, unit_square_tri
+    from repro_torch.kernels.ref import matfree_p1_diffusion_ref
+
+    cases = 0
+    for gen, n in ((unit_cube_tet, 7), (unit_square_tri, 13)):
+        m = gen(n)
+        plan = build_plan(FunctionSpace(m, element_for_mesh(m)), device="cuda")
+        ctx = plan.context()
+        for dtype in (torch.float64, torch.float32):
+            grad, detj, w = ctx.grad.to(dtype), ctx.detj.to(dtype), ctx.w.to(dtype)
+            e, q = detj.shape
+            x = torch.randn(plan.num_dofs, dtype=dtype, device="cuda")
+            rho_e = torch.rand(e, dtype=dtype, device="cuda") + 0.5
+            rho_q = torch.rand((e, q), dtype=dtype, device="cuda") + 0.5
+            rho_t = (torch.rand((q, e), dtype=dtype, device="cuda") + 0.5).t()
+            dev_scale = torch.tensor(0.7, dtype=dtype, device="cuda")
+            full = (plan.cell_dofs, grad, detj, w)
+            variants = {
+                "cell_expand": (full, rho_e[:, None].expand(e, q), 0.7),
+                "quad": (full, rho_q, dev_scale),
+                "quad_transposed": (full, rho_t, 1.3),
+                "none": (full, None, 1.0),
+                "number": (full, 2.5, 0.5),
+                "one_point": ((plan.cell_dofs, grad[:, :1], detj[:, :1], w[:1]), rho_e[:, None],
+                              1.0),
+            }
+            for lo, hi in ((0, 1), (0, 127), (5, 134), (e // 3, e)):  # ragged tiles, a block
+                cd, g, dj, _ = full
+                variants[f"block_{lo}_{hi}"] = ((cd[lo:hi], g[lo:hi], dj[lo:hi], w),
+                                                rho_q[lo:hi], dev_scale)
+            for label, ((cd, g, dj, ww), rho, scale) in variants.items():
+                got = kernels.matfree_p1_diffusion(x, cd, g, dj, ww, rho, scale)
+                want = matfree_p1_diffusion_ref(x, cd, g, dj, ww, rho, scale)
+                err, mag = max_err(got, want)
+                tol = (1e-13 if dtype == torch.float64 else 1e-5) * mag
+                check(err <= tol, f"matfree_p1_diffusion {gen.__name__}({n}) {dtype} {label}: "
+                                  f"{err} > {tol}")
+                key = str(dtype)
+                worst[key] = max(worst.get(key, 0.0), err / mag)
+                cases += 1
+    return cases
+
+
+def phase_matfree_kernel(bw, fp64, ptxas=None):
+    """The fused P1 diffusion action (``kernels.matfree_p1_diffusion``,
+    ``csrc/matfree_p1.cu``): ``ptxas -v``; the kernel against its plain
+    twin (:func:`_matfree_kernel_cases`); at unit_cube_tet(16) one apply
+    launches it once and B2 once and no cuBLAS kernel (wrappers and a
+    profiler trace), and the matrix-free solve is within 1e-8 of ``ell``'s
+    in as many iterations ±1; at n = 96 (5,308,416 tets, the
+    ``poisson96.matfree`` cell's mesh) the kernel's time against its bound
+    and against the einsum action it replaces, a whole apply each way, and
+    one matrix-free solve on the context store at ρ = 1 (iterations, time,
+    the kernel's launches against the ``matfree_action`` counter)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels, telemetry
+    from repro_torch.core import matfree_operator, unit_cube_tet, weakform as wf
+    from repro_torch.core.assembly import reduce_vector
+    from repro_torch.fem import PoissonProblem
+
+    proc = start_ptxas("matfree_p1") if ptxas is None else None
+    worst = {}
+    cases = _matfree_kernel_cases(worst)
+    ptxas = ptxas_report(proc) if proc is not None else ptxas
+
+    prob = PoissonProblem(unit_cube_tet(16), device="cuda")
+    plan = prob.plan
+    rho = torch.rand(plan.num_cells, dtype=torch.float64, device="cuda") + 0.5
+    op = matfree_operator(plan, wf.diffusion(rho))
+    x = torch.randn(plan.num_dofs, dtype=torch.float64, device="cuda")
+    op.matvec(x)
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _open_trace()
+        y = op.matvec(x)
+        torch.cuda.synchronize()
+    wrappers = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    calls, lost = _kernel_calls(prof), len(_lost_records(prof))
+    library = sorted({ev.key[:70] for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and re.search(r"gemv|gemm|cublas", ev.key, re.I)})
+    err16, mag16 = max_err(y, prob.asm.assemble(wf.diffusion(rho)).matvec(x))
+    mf, ell = prob.solve(f=1.0, backend="matfree"), prob.solve(f=1.0, backend="ell")
+    path16 = {"wrapper_launches": wrappers, "profiled_kernel_calls": calls,
+              "lost_records": lost, "library_kernels": library,
+              "apply_vs_assembled": err16 / mag16, "iters": mf.iters, "ell_iters": ell.iters,
+              "max_abs_diff_vs_ell": float((mf.u - ell.u).abs().max())}
+    check(wrappers == {"matfree_p1_diffusion": 1, "seg_reduce": 1},
+          f"matfree_kernel: one apply launched {wrappers}")
+    check(calls["matfree_p1_diffusion"] == 1 and calls["seg_reduce"] == 1 and not library,
+          f"matfree_kernel: the trace of one apply {path16}")
+    check(err16 <= 1e-12 * mag16, f"matfree_kernel: apply against the assembled matvec {path16}")
+    check(abs(mf.iters - ell.iters) <= 1 and path16["max_abs_diff_vs_ell"] <= 1e-8,
+          f"matfree_kernel: the n = 16 solve against ell {path16}")
+    del prob, plan, op
+
+    # n = 96: the cell's mesh
+    t0 = time.perf_counter()
+    prob = PoissonProblem(unit_cube_tet(MF_KERNEL_N), device="cuda")
+    setup_s = time.perf_counter() - t0
+    plan, bc = prob.plan, prob.bc
+    e = plan.num_cells
+    op = matfree_operator(plan, wf.diffusion(None))
+    ctx = op.ctx
+    x = torch.randn(plan.num_dofs, dtype=torch.float64, device="cuda")
+    args = (x, plan.cell_dofs, ctx.grad, ctx.detj, ctx.w)
+    xe = x[plan.cell_dofs]
+    kernel_ms = time_ms(lambda: kernels.matfree_p1_diffusion(*args))
+    einsum_ms = time_ms(lambda: op._local_apply(xe, False))
+    gather_ms = time_ms(lambda: x[plan.cell_dofs])
+    err, mag = max_err(kernels.matfree_p1_diffusion(*args), op._local_apply(xe, False))
+    apply_ms = time_ms(lambda: op.matvec(x))
+    einsum_apply_ms = time_ms(lambda: reduce_vector(op._local_apply(x[plan.cell_dofs], False),
+                                                    plan))
+    bound_ms = 1e3 * MF_WORK_BYTES * e / bw
+    moved_ms = 1e3 * MF_MOVED_BYTES * e / bw
+    # one matrix-free solve at ρ = 1 on the context store
+    kernels.reset_launches()
+    telemetry.reset()
+    with telemetry.enabled():
+        res, solve_s = timed(lambda: prob.solve(f=1.0, backend="matfree"))
+        counters = telemetry.snapshot()["counters"]
+    telemetry.reset()
+    fused = counters.get("matfree_action{path=fused}", 0)
+    solve = {"iters": res.iters, "wall_s": solve_s, "ms_per_iter": 1e3 * solve_s / res.iters,
+             "residual": res.residual, "converged": res.converged,
+             "kernel_launches": kernels.LAUNCHES["matfree_p1_diffusion"],
+             "seg_reduce_launches": kernels.LAUNCHES["seg_reduce"],
+             "matfree_action": {"fused": fused,
+                                "einsum": counters.get("matfree_action{path=einsum}", 0)}}
+    out = {"phase": "matfree_kernel", "ptxas": ptxas, "cases": cases, "worst_rel_err": worst,
+           "n16": path16,
+           "n96": {"elements": e, "dofs": plan.num_dofs, "setup_s": setup_s,
+                   "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                   "share": bound_ms / kernel_ms, "moved_bytes_per_elem": MF_MOVED_BYTES,
+                   "moved_gb_per_s": MF_MOVED_BYTES * e / kernel_ms / 1e6,
+                   "moved_share": moved_ms / kernel_ms, "einsum_action_ms": einsum_ms,
+                   "gather_ms": gather_ms, "max_rel_err_vs_einsum": err / mag,
+                   "apply_ms": apply_ms, "einsum_apply_ms": einsum_apply_ms, "solve": solve,
+                   "peak_bytes_per_s": bw}}
+    emit(out)
+    check(err <= 1e-13 * mag, f"matfree_kernel: n = 96 kernel against the einsum {err / mag}")
+    check(res.converged and fused == solve["kernel_launches"] > 0 and
+          counters.get("matfree_action{path=einsum}", 0) == 0,
+          f"matfree_kernel: the n = 96 solve {solve}")
+    return {"ms": kernel_ms, "plain_ms": einsum_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err, "shape": f"tet E = {e:,}",
+            "launches": solve["kernel_launches"]}
+
+
 def phase_matfree(prob):
     """Matrix-free operators (A9) and the time stepping on them (A12) at
     n = 64, on the main path's plan and condenser: ``PoissonProblem.solve(
@@ -2270,6 +2445,8 @@ def phase_matfree(prob):
                "apply_ms": time_ms(lambda: op.matvec(x)),
                "gather_ms": time_ms(lambda: x[plan.cell_dofs]),
                "action_ms": time_ms(lambda: op._local_apply(xe, False)),
+               "fused_action_ms": (None if store == "local" else
+                                   time_ms(lambda: op._fused_action(x, *op._fused_terms(x)))),
                "scatter_ms": time_ms(lambda: reduce_vector(y_local, plan)),
                "apply_peak_bytes": peak, "state_bytes": op_full.state_bytes(),
                "csr_vals_bytes": csr_vals_bytes, "csr_bytes": csr_bytes}
@@ -2293,6 +2470,13 @@ def phase_matfree(prob):
                  f"matfree {store}: B1 launched {got['local_stiffness_p1']} times ({label}{lost})")
         gate(counts["spmv_ell"] == 0 and counts["galerkin_residual_ell"] == 0,
              f"matfree {store}: launched B3/B4 {counts}")
+        # the fused P1 diffusion action once per apply, but on stored element matrices
+        fused = store != "local"
+        for label, got, want in (("wrappers", counts, applies if fused else 0),
+                                 ("profiler", calls, PROFILED_ITERS + 1 if fused else 0)):
+            gate(got["matfree_p1_diffusion"] == want,
+                 f"matfree {store}: the fused action launched {got['matfree_p1_diffusion']} "
+                 f"times, not {want} ({label}{lost})")
 
     # the gradient through matfree_solve against sparse_solve's
     spec12 = SolverSpec(method="cg", tol=1e-12, atol=1e-12)
@@ -5705,7 +5889,7 @@ def device_line() -> tuple[str, str]:
 
 ONLY_PHASES = ("cold_path", "host_cost", "assembly_cost", "ell_timing", "ell_sweep",
                "reduce_timing", "gradients", "kernels_small", "mixed_bc", "elasticity", "batched",
-               "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "lm_families",
+               "matfree_kernel", "matfree", "opt", "pils", "elemalg", "serve", "sharded", "lm", "lm_families",
                "lm_layout", "trace_drops",
                "quickstart", "kernels_offsets64")
 
@@ -5736,7 +5920,8 @@ def main(argv=None) -> int:
     bw, fp64 = card_peaks(name)
     t0 = time.perf_counter()
     ptxas = {source: start_ptxas(source)
-             for source in ("local_assembly", "seg_reduce", "spmv_ell", "spmv_ell_stream")}
+             for source in ("local_assembly", "matfree_p1", "seg_reduce", "spmv_ell",
+                            "spmv_ell_stream")}
     try:
         kernels.build()
     finally:
@@ -5764,6 +5949,7 @@ def main(argv=None) -> int:
     mixed = phase_mixed_bc()
     elasticity = phase_elasticity(bw, fp64)
     batched = phase_batched(prob, bw, fp64)
+    rows["matfree_p1_diffusion"] = phase_matfree_kernel(bw, fp64, reports["matfree_p1"])
     matfree = phase_matfree(prob)
     opt = phase_opt()
     pils = phase_pils()
@@ -5780,7 +5966,8 @@ def main(argv=None) -> int:
     # path, B5 on the θ rollout, B6 in the n = 96 streaming solve
     paths = {**{kname: ("main_path", main_launches) for kname in MAIN_KERNELS},
              "spmv_ell_stream": ("transient", transient_launches),
-             "galerkin_residual_ell_stream": ("stream_solve", stream_launches)}
+             "galerkin_residual_ell_stream": ("stream_solve", stream_launches),
+             "matfree_p1_diffusion": ("matfree", matfree["launches"])}
     launches = {kname: counts[kname] for kname, (_, counts) in paths.items()}
     # and on this slice's paths, each counted from 0 around its own run
     later = {"mixed_bc": mixed["launches"], "elasticity": elasticity["launches"],
@@ -5829,6 +6016,7 @@ def run_only(only) -> int:
               "mixed_bc": phase_mixed_bc,
               "elasticity": lambda: phase_elasticity(*card_peaks(name)),
               "batched": lambda: phase_batched(None, *card_peaks(name)),
+              "matfree_kernel": lambda: phase_matfree_kernel(*card_peaks(name)),
               "matfree": lambda: phase_matfree(None),
               "opt": phase_opt,
               "pils": phase_pils,

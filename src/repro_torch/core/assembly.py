@@ -241,6 +241,13 @@ class AssemblyPlan:
     def num_cells(self) -> int:
         return int(self.coords.shape[0])
 
+    @property
+    def p1_simplex(self) -> bool:
+        """True for a scalar P1 field on triangles or tetrahedra: affine
+        geometry, so the basis gradients are the same at every quadrature
+        point of an element."""
+        return self.element.name in ("P1_tri", "P1_tet") and self.value_size == 1
+
     def context(self, coords: torch.Tensor | None = None) -> forms.FormContext:
         return geometry_context(
             self.coords if coords is None else coords,
@@ -302,6 +309,7 @@ class PlanShard:
 
     context = AssemblyPlan.context
     quadrature_points = AssemblyPlan.quadrature_points
+    p1_simplex = AssemblyPlan.p1_simplex
 
     @property
     def block(self) -> tuple[int, int]:
@@ -428,7 +436,7 @@ def _p1_element_rho(plan: AssemblyPlan, coords, volume):
     ``scale`` and ``coords``).  ``None`` for any other volume part."""
     if len(volume) != 1 or volume[0][0] != "diffusion":
         return None
-    if plan.element.name not in ("P1_tri", "P1_tet") or plan.value_size != 1:
+    if not plan.p1_simplex:
         return None
     _, (rho,), scale = volume[0]
     e = coords.shape[0]

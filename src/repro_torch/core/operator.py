@@ -14,7 +14,12 @@ CUDA plan every apply launches B2 (``repro_torch.kernels.seg_reduce``) on
 the plan's vector table.  For the built-in kernels the action is fused:
 diffusion applies ``𝒢ᵀ(w ρ (𝒢 x_e))`` through (E, Q, d) intermediates and
 never forms the (E, k, k) element matrices; other kernels form K_e on the
-fly (still no global values).
+fly (still no global values).  A single diffusion term on a scalar P1
+simplex space, applied without an autograd graph, runs gather and action
+as one kernel (:func:`~repro_torch.kernels.matfree_p1_diffusion`: the
+geometry is affine, so it reads one of the context's Q gradient blocks);
+the telemetry counter ``matfree_action{path=fused|einsum}`` counts the
+applies of each path.
 
 Storage strategies (the memory/speed dial):
 
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..kernels.matfree_p1 import matfree_p1_diffusion
 from ..kernels.seg_reduce import seg_reduce
 from ..sharding.partitioning import (FemMesh, reduce_from_shards, resolve_fem_mesh,
                                      shard_leaves, to_shard)
@@ -283,13 +289,51 @@ class MatFreeOperator(LinearOperator):
             out = y if out is None else out + y
         return out
 
+    def _fused_terms(self, x):
+        """``(rho, scale)`` of the diffusion term when this apply may run
+        gather and action as the fused P1 kernel, else ``None``: one
+        diffusion term on a scalar P1 simplex space (affine geometry), a
+        context to read (no stored element matrices), a scalar scale, and
+        no autograd graph to record — grad mode off, or none of ``x`` and
+        :meth:`traced` requires grad and the coefficient is no callable
+        (which may close over a tensor that does)."""
+        if self.k_local is not None or len(self.spec) != 1 or self.spec[0][0] != "diffusion":
+            return None
+        if not self.plan.p1_simplex:
+            return None
+        _, (rho,), scale = self._term_values()[0]
+        if isinstance(scale, torch.Tensor) and scale.numel() != 1:
+            return None
+        if torch.is_grad_enabled() and (callable(rho) or x.requires_grad
+                                        or any(t.requires_grad for t in self.traced())):
+            return None
+        return rho, scale
+
+    def _fused_action(self, x, rho, scale):
+        """y_e of every element by the fused P1 diffusion kernel."""
+        ctx = self._context()
+        if rho is not None and not isinstance(rho, (int, float)):
+            rho = forms.eval_coefficient(rho, ctx).to(ctx.grad.dtype)
+        if isinstance(scale, torch.Tensor):  # a host scalar goes in as a number
+            scale = float(scale) if scale.device.type == "cpu" else scale.to(ctx.grad.dtype)
+        return matfree_p1_diffusion(x, self.plan.cell_dofs, ctx.grad, ctx.detj, ctx.w, rho,
+                                    scale)
+
     def _scatter_apply(self, x, transpose: bool):
         """Gather, per-element action, B2 scatter: ``A x`` without the
-        Dirichlet mask."""
-        with annotate("tg.matfree.gather"):
-            xe = x[self.plan.cell_dofs]
-        with annotate("tg.matfree.action"):
-            y_local = self._local_apply(xe, transpose)
+        Dirichlet mask; gather and action in one kernel where
+        :meth:`_fused_terms` allows (that action is symmetric, so
+        ``transpose`` does not matter there)."""
+        fused = self._fused_terms(x)
+        telemetry.counter_inc("matfree_action", 1, path="einsum" if fused is None else "fused")
+        if fused is None:
+            with annotate("tg.matfree.gather"):
+                xe = x[self.plan.cell_dofs]
+            with annotate("tg.matfree.action"):
+                y_local = self._local_apply(xe, transpose)
+        else:
+            with annotate("tg.matfree.action"):
+                y_local = self._fused_action(x, *fused)
         with annotate("tg.matfree.scatter"):
             return reduce_vector(y_local, self.plan)
 
@@ -550,6 +594,7 @@ class MatFreeFamily(LinearOperator):
 
     def _scatter_apply(self, xb, transpose: bool):
         op = self.op
+        telemetry.counter_inc("matfree_action", 1, path="einsum")
         with annotate("tg.matfree.gather"):
             xe = xb[:, op.plan.cell_dofs]
         with annotate("tg.matfree.action"):

@@ -5,6 +5,7 @@ PyTorch versions (:mod:`repro_torch.kernels.ref`).
 wrapper                           ports the Pallas kernel (``repro.kernels``)
 ================================  ==========================================
 ``local_stiffness_p1``            ``local_assembly.local_stiffness_p1``
+``matfree_p1_diffusion``          none: the matrix-free action's einsum
 ``seg_reduce``                    ``seg_reduce.seg_reduce``
 ``spmv_ell``                      ``spmv_ell.spmv_ell``
 ``galerkin_residual_ell``         ``spmv_ell.galerkin_residual_ell``
@@ -20,6 +21,7 @@ launches of each wrapper.  The libraries build with ``nvcc`` at first use
 
 from ._cuda import LAUNCHES, build, reset_launches  # noqa: F401
 from .local_assembly import local_stiffness_p1  # noqa: F401
+from .matfree_p1 import matfree_p1_diffusion  # noqa: F401
 from .ops import (  # noqa: F401
     autotune_ell_stream,
     batch_map_stiffness,

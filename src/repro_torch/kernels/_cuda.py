@@ -33,11 +33,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("local_assembly", "seg_reduce", "spmv_ell", "spmv_ell_stream")
+SOURCES = ("local_assembly", "matfree_p1", "seg_reduce", "spmv_ell", "spmv_ell_stream")
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "local_stiffness_p1": 0,
+    "matfree_p1_diffusion": 0,
     "seg_reduce": 0,
     "spmv_ell": 0,
     "galerkin_residual_ell": 0,
@@ -108,7 +109,8 @@ def _library(name: str) -> ctypes.CDLL:
 
 def launch(counter: str, source: str, symbol: str, *args) -> None:
     """Call ``symbol`` of library ``source`` with ``args`` (tensors become
-    device pointers, ints become ``long long``) and the current stream of
+    device pointers, ``None`` a null pointer, floats ``double`` and ints
+    ``long long``) and the current stream of
     the first tensor's device; raise on a CUDA error, else count one
     launch under ``counter``."""
     lib = _library(source)
@@ -122,6 +124,9 @@ def launch(counter: str, source: str, symbol: str, *args) -> None:
         elif a is None:
             cargs.append(ctypes.c_void_p(None))
             types.append(ctypes.c_void_p)
+        elif isinstance(a, float):
+            cargs.append(ctypes.c_double(a))
+            types.append(ctypes.c_double)
         else:
             cargs.append(ctypes.c_longlong(int(a)))
             types.append(ctypes.c_longlong)

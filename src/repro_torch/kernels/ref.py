@@ -8,6 +8,7 @@ import torch
 
 __all__ = [
     "local_stiffness_p1_ref",
+    "matfree_p1_diffusion_ref",
     "seg_reduce_ref",
     "seg_reduce_ordered_ref",
     "spmv_ell_ref",
@@ -34,6 +35,33 @@ def local_stiffness_p1_ref(coords: torch.Tensor, rho: torch.Tensor) -> torch.Ten
     w = 1.0 / {1: 1.0, 2: 2.0, 3: 6.0}[d]                          # reference simplex volume
     scale = w * det.abs() * rho                                    # ([B,] E)
     return torch.einsum("...e,eai,ebi->...eab", scale, g, g)
+
+
+def matfree_p1_diffusion_ref(x: torch.Tensor, cell_dofs: torch.Tensor, grad: torch.Tensor,
+                             detj: torch.Tensor, w: torch.Tensor, rho=None,
+                             scale=1.0) -> torch.Tensor:
+    """The matrix-free P1 diffusion action with its gather: x (n,),
+    cell_dofs (E, k), grad (E, Q, k, d) with k = d + 1, detj (E, Q), w (Q,)
+    → y (E, k) with
+
+        y_e = c_e · G_e (G_eᵀ x_e),   c_e = s · Σ_q w_q |detJ_eq| ρ_eq,
+
+    G_e = grad[e, 0] (affine geometry: every quadrature point holds the
+    same gradients) and x_e = x[cell_dofs[e]].  ``rho`` is ``None`` (1), a
+    number, or a tensor that broadcasts to (E, Q); ``scale`` a number or
+    a one-element tensor; s is their product."""
+    g = grad[:, 0]
+    wd = w * detj
+    c = (wd * rho if isinstance(rho, torch.Tensor) else wd).sum(-1)
+    factor = 1.0
+    for f in (rho, scale):
+        if f is not None and not isinstance(f, torch.Tensor):
+            factor *= f
+    c = c * factor
+    if isinstance(scale, torch.Tensor):
+        c = c * scale.reshape(())
+    t = torch.einsum("eai,ea->ei", g, x[cell_dofs])
+    return c[:, None] * torch.einsum("eai,ei->ea", g, t)
 
 
 def seg_reduce_ref(src: torch.Tensor, rows: torch.Tensor, n_rows: int,

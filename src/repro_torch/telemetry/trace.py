@@ -49,7 +49,9 @@ class annotate:
       residual, a solve's relative residual), ``tg.solve.residual``† (a
       problem solve's fused residual after its loop);
     * matrix-free apply — ``tg.matfree.gather``, ``tg.matfree.action``,
-      ``tg.matfree.scatter``, ``tg.matfree.all_reduce``;
+      ``tg.matfree.scatter``, ``tg.matfree.all_reduce`` (the fused P1
+      diffusion kernel gathers inside ``tg.matfree.action``, and opens no
+      ``tg.matfree.gather``);
     * preconditioners and condensed solves — ``tg.precond.ebe_apply``,
       ``tg.precond.chebyshev_apply``, ``tg.elemalg.condense``,
       ``tg.elemalg.schur_apply``;

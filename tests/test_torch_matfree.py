@@ -5,7 +5,11 @@ elasticity fallback, condensation and ``diagonal`` against
 against the JAX call and ``jax.grad`` (and ``gradcheck``); the problem
 classes on ``backend="matfree"``; ``MatFreeFamily`` and
 ``matfree_solve_batched`` against the JAX family; the ``matfree`` backend of
-the registry.  The ``cuda`` test counts the kernels an apply launches."""
+the registry; the fused P1 diffusion action (``kernels.matfree_p1_diffusion``)
+against the einsum action and the JAX operator, and which applies take it,
+read from the ``matfree_action`` telemetry counter.  The ``cuda`` tests
+count the kernels an apply launches and hold the fused kernel to its plain
+twin."""
 
 import functools
 
@@ -22,7 +26,8 @@ from repro.core import weakform as jwf  # noqa: E402
 from repro.fem import tensormesh as jtm  # noqa: E402
 
 import repro_torch.core as tc  # noqa: E402
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, telemetry  # noqa: E402
+from repro_torch.core import forms, operator  # noqa: E402
 from repro_torch.core import weakform as twf  # noqa: E402
 from repro_torch.fem import tensormesh as ttm  # noqa: E402
 
@@ -426,6 +431,159 @@ def test_family_solve_and_gradient_match_jax(store):
     _close(g, gj, 1e-8 * np.abs(gj).max())
 
 
+# ---------------------------------------------------------------------------
+# the fused P1 diffusion action and its dispatch
+# ---------------------------------------------------------------------------
+
+RHO_KINDS = ["cell", "quad", "scalar", "callable"]
+
+
+def _rho(kind, e, q, seed):
+    """A coefficient of one encoding: per cell (E,), per quadrature point
+    (E, Q), a number, or a callable of the quadrature points."""
+    rng = np.random.default_rng(seed)
+    if kind == "cell":
+        return torch.as_tensor(rng.uniform(0.5, 2.0, e))
+    if kind == "quad":
+        return torch.as_tensor(rng.uniform(0.5, 2.0, (e, q)))
+    if kind == "scalar":
+        return 1.7
+    return lambda xq: 1.0 + xq[..., 0] ** 2
+
+
+def _action_paths(fn):
+    """``fn()``'s matrix-free applies by path, read from the telemetry
+    counter ``matfree_action``, and its result."""
+    def read():
+        counters = telemetry.snapshot()["counters"]
+        return {p: counters.get(f"matfree_action{{path={p}}}", 0) for p in ("fused", "einsum")}
+
+    with telemetry.enabled():
+        before = read()
+        out = fn()
+        after = read()
+    return {p: after[p] - before[p] for p in after}, out
+
+
+@pytest.mark.parametrize("rho_kind", RHO_KINDS)
+@pytest.mark.parametrize("gen,n", [("unit_cube_tet", 3), ("unit_square_tri", 5)])
+def test_fused_twin_equals_the_einsum_action(gen, n, rho_kind):
+    """The fused kernel's plain twin (its CPU path) against the einsum
+    action times the scale, on a randomly distorted mesh: to 1e-13 of the
+    largest entry in float64."""
+    m = getattr(tc, gen)(n)
+    plan = tc.build_plan(tc.FunctionSpace(m, tc.element_for_mesh(m)), device="cpu")
+    rng = np.random.default_rng(21)
+    pts = m.points + (0.2 / n) * rng.uniform(-1.0, 1.0, m.points.shape)
+    ctx = plan.context(torch.as_tensor(pts[m.cells]))
+    e, q = ctx.detj.shape
+    rho = _rho(rho_kind, e, q, 22)
+    scale = torch.tensor(0.37) if rho_kind == "quad" else 0.37
+    x = torch.as_tensor(rng.standard_normal(plan.num_dofs))
+    want = operator._diffusion_act(ctx, 1, x[plan.cell_dofs], rho) * scale
+    rho_q = rho if rho_kind == "scalar" else forms.eval_coefficient(rho, ctx)
+    got = kernels.matfree_p1_diffusion(x, plan.cell_dofs, ctx.grad, ctx.detj, ctx.w, rho_q,
+                                       scale)
+    assert got.shape == plan.cell_dofs.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-13 * float(want.abs().max()))
+
+
+def test_fused_wrapper_checks_its_operands():
+    """Shapes, the (k, d) it serves, the vector and the scale are checked
+    before any launch; a tensor off the CPU never takes the plain twin."""
+    _, _, pt, _ = _plans("P1_tet")
+    ctx = pt.context()
+    x = torch.zeros(pt.num_dofs, dtype=torch.float64)
+    args = (x, pt.cell_dofs, ctx.grad, ctx.detj, ctx.w)
+
+    def call(i, value, **kw):
+        return lambda: kernels.matfree_p1_diffusion(*args[:i], value, *args[i + 1:], **kw)
+
+    for bad in (call(0, x[None]), call(1, pt.cell_dofs[:, :3]), call(2, ctx.grad[..., :2]),
+                call(3, ctx.detj[:, :2]), call(4, ctx.w[:2]),
+                call(0, x, scale=torch.ones(2, dtype=torch.float64))):
+        with pytest.raises(ValueError):
+            bad()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.matfree_p1_diffusion(*(t.to("meta") for t in args))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("rho_kind", ["cell", "quad", "scalar"])
+@pytest.mark.parametrize("store", ["coords", "context"])
+@pytest.mark.parametrize("name", ["P1_tri", "P1_tet"])
+def test_fused_apply_matches_jax(name, store, rho_kind):
+    """``matvec`` / ``rmatvec`` of a scaled P1 diffusion operator take the
+    fused path and match the JAX operator at 1e-12."""
+    pj, _, pt, _ = _plans(name)
+    rho = _rho(rho_kind, pt.num_cells, pt.w.shape[0], 23)
+    rho_j = rho if rho_kind == "scalar" else jnp.asarray(rho.numpy())
+    oj = jc.matfree_operator(pj, 0.6 * jwf.diffusion(rho_j), store=store)
+    ot = tc.matfree_operator(pt, 0.6 * twf.diffusion(rho), store=store)
+    xj, xt = _rng_vec(pt.num_dofs, 24)
+    paths, (y, yt) = _action_paths(lambda: (ot.matvec(xt), ot.rmatvec(xt)))
+    assert paths == {"fused": 2, "einsum": 0}
+    _close(y, oj.matvec(xj), 1e-12)
+    _close(yt, oj.rmatvec(xj), 1e-12)
+
+
+@pytest.mark.parametrize("store", ["context", "coords"])
+def test_dispatch_fused_under_no_grad(store):
+    _, _, pt, bt = _plans("P1_tet")
+    rho = _rho("cell", pt.num_cells, 0, 25).requires_grad_(True)
+    op = tc.matfree_operator(pt, twf.diffusion(rho), store=store).condensed(bt)
+    _, x = _rng_vec(pt.num_dofs, 26)
+    with torch.no_grad():
+        paths, y = _action_paths(lambda: op.matvec(x))
+    assert paths == {"fused": 1, "einsum": 0} and not y.requires_grad
+    # with grad on, the same apply records its graph on the einsum path
+    paths, yg = _action_paths(lambda: op.matvec(x))
+    assert paths == {"fused": 0, "einsum": 1} and yg.requires_grad
+    torch.testing.assert_close(y, yg.detach(), atol=1e-13, rtol=0)
+
+
+def _einsum_case(case):
+    """An operator (or family) that the fused kernel does not serve, and
+    an input."""
+    name = {"p2": "P2_tri", "quad": "Q1_quad", "hex": "Q1_hex"}.get(case, "P1_tet")
+    _, _, pt, _ = _plans(name)
+    rho = _rho("cell", pt.num_cells, 0, 27)
+    _, x = _rng_vec(pt.num_dofs, 28)
+    if case == "diffusion_mass":
+        return tc.matfree_operator(pt, twf.diffusion(rho) + 0.3 * twf.mass()), x
+    if case == "local":
+        return tc.matfree_operator(pt, twf.diffusion(rho), store="local"), x
+    if case == "family":
+        return tc.matfree_family(pt, twf.diffusion(rho),
+                                 leaves_batch=(torch.stack([rho, 2.0 * rho]), None)), x
+    return tc.matfree_operator(pt, twf.diffusion(rho)), x
+
+
+@pytest.mark.parametrize("case", ["diffusion_mass", "p2", "quad", "hex", "local", "family"])
+def test_dispatch_einsum_where_the_kernel_does_not_apply(case):
+    op, x = _einsum_case(case)
+    with torch.no_grad():
+        paths, _ = _action_paths(lambda: op.matvec(x))
+    assert paths == {"fused": 0, "einsum": 1}
+
+
+def test_dispatch_inside_the_matfree_solve_gradient():
+    """With ρ requiring grad, the forward and adjoint Krylov solves apply
+    the operator's detached tensors (fused); the pullback through one
+    apply records a graph (einsum); the gradient still matches JAX's."""
+    pt, bt, rho, f, (_, _, g_rho_j, _) = _cube()
+    r = torch.tensor(rho, requires_grad=True)
+    op = tc.matfree_operator(pt, twf.diffusion(r)).condensed(bt)
+    fwd, (u, info) = _action_paths(
+        lambda: tc.matfree_solve(op, f, tc.SolverSpec(**SPEC), return_info=True))
+    assert fwd["einsum"] == 0 and fwd["fused"] >= info.iters
+    bwd, (g,) = _action_paths(lambda: torch.autograd.grad((u ** 2).sum(), r))
+    assert bwd["einsum"] == 1 and bwd["fused"] >= 1
+    _close(g, g_rho_j, 1e-8 * np.abs(g_rho_j).max())
+
+
 @pytest.mark.cuda
 def test_cuda_matfree_apply_launches(cuda):
     m = tc.unit_cube_tet(4)
@@ -446,6 +604,57 @@ def test_cuda_matfree_apply_launches(cuda):
     fam.matvec(x)
     fam.diagonal()
     assert kernels.LAUNCHES["seg_reduce"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("gen,n", [("unit_cube_tet", 6), ("unit_square_tri", 12)])
+def test_cuda_matfree_p1_kernel_matches_its_twin(cuda, gen, n, dtype):
+    """The kernel against its plain twin on the card, (k, d) = (4, 3) and
+    (3, 2), ρ per cell (q-stride 0) and per quadrature point, a device
+    scale: 1e-13 in float64, 1e-5 of scale in float32."""
+    dt = getattr(torch, dtype)
+    m = getattr(tc, gen)(n)
+    plan = tc.build_plan(tc.FunctionSpace(m, tc.element_for_mesh(m)), device=cuda)
+    ctx = plan.context()
+    grad, detj, w = ctx.grad.to(dt), ctx.detj.to(dt), ctx.w.to(dt)
+    e, q = detj.shape
+    x = torch.randn(plan.num_dofs, dtype=dt, device=cuda)
+    tol = 1e-13 if dt == torch.float64 else 1e-5
+    for rho, scale in (((torch.rand(e, dtype=dt, device=cuda) + 0.5)[:, None].expand(e, q), 0.7),
+                       (torch.rand((e, q), dtype=dt, device=cuda) + 0.5,
+                        torch.tensor(0.7, dtype=dt, device=cuda)),
+                       (None, 1.0)):
+        args = (x, plan.cell_dofs, grad, detj, w, rho, scale)
+        got = kernels.matfree_p1_diffusion(*args)
+        want = kernels.ref.matfree_p1_diffusion_ref(*args)
+        torch.testing.assert_close(got, want, atol=tol * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_apply_launches_and_solves(cuda):
+    """One P1 diffusion apply launches the fused kernel once and B2 once,
+    and no cuBLAS kernel; at unit_cube_tet(16) the matrix-free solve is
+    within 1e-8 of ``ell``'s, its iterations within ±1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prob = ttm.PoissonProblem(tc.unit_cube_tet(16), device=cuda)
+    rho = torch.rand(prob.plan.num_cells, dtype=torch.float64, device=cuda) + 0.5
+    op = tc.matfree_operator(prob.plan, twf.diffusion(rho))
+    x = torch.randn(prob.plan.num_dofs, dtype=torch.float64, device=cuda)
+    op.matvec(x)
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = op.matvec(x)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["matfree_p1_diffusion"] == 1 and kernels.LAUNCHES["seg_reduce"] == 1
+    names = [ev.key.lower() for ev in prof.key_averages()]
+    assert not [k for k in names if "gemv" in k or "gemm" in k or "cublas" in k], names
+    torch.testing.assert_close(y, tc.assemble(prob.plan, twf.diffusion(rho)).matvec(x),
+                               atol=1e-12, rtol=0)
+    mf, ell = prob.solve(backend="matfree"), prob.solve(backend="ell")
+    assert abs(mf.iters - ell.iters) <= 1
+    assert float((mf.u - ell.u).abs().max()) <= 1e-8
 
 
 @pytest.fixture

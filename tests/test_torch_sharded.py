@@ -330,6 +330,16 @@ def test_sharded_collectives_per_apply(worlds, size):
     _rel(res["g"], ref["g"], 1e-12)
 
 
+@pytest.mark.parametrize("size", SIZES)
+def test_sharded_block_takes_the_fused_action(worlds, size):
+    """Each rank's block of a P1 diffusion apply runs the fused kernel
+    (one ``matfree_action{path=fused}`` an apply); a differentiated apply
+    takes the einsum path."""
+    res = _result(worlds, size, "collectives")
+    assert res["paths"] == {"matvec": {"fused": 1, "einsum": 0},
+                            "grad_apply": {"fused": 0, "einsum": 1}}
+
+
 # ---------------------------------------------------------------------------
 # registry and consumers
 # ---------------------------------------------------------------------------

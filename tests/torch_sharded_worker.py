@@ -301,9 +301,27 @@ def case_registry(mesh) -> dict:
     return out
 
 
+def _action_paths(fn) -> dict:
+    """The matrix-free applies of ``fn()`` by path, read from the telemetry
+    counter ``matfree_action``."""
+    from repro_torch import telemetry
+
+    def read():
+        counters = telemetry.snapshot()["counters"]
+        return {p: counters.get(f"matfree_action{{path={p}}}", 0) for p in ("fused", "einsum")}
+
+    with telemetry.enabled():
+        before = read()
+        fn()
+        after = read()
+    return {p: after[p] - before[p] for p in after}
+
+
 def case_collectives(mesh) -> dict:
     """The all-reduces of one apply, one diagonal, one sharded assembly and
-    one differentiated apply."""
+    one differentiated apply; the paths the rank's block takes in the
+    plain apply (the fused P1 diffusion kernel) and the differentiated one
+    (einsum)."""
     import torch
 
     import repro_torch.core as tc
@@ -326,7 +344,10 @@ def case_collectives(mesh) -> dict:
     y = tc.matfree_operator(plan, wf.diffusion(r)).sharded(mesh).matvec(x)
     g = torch.autograd.grad(y.sum(), r)[0]
     counts["grad_apply"] = dict(COLLECTIVES)
-    return {"counts": counts, "g": _np(g)}
+    paths = {"matvec": _action_paths(lambda: sop.matvec(x)),
+             "grad_apply": _action_paths(lambda: tc.matfree_operator(
+                 plan, wf.diffusion(rho.clone().requires_grad_(True))).sharded(mesh).matvec(x))}
+    return {"counts": counts, "g": _np(g), "paths": paths}
 
 
 def case_problems(mesh) -> dict:
